@@ -1,4 +1,4 @@
-"""pbrt_tpu — a TPU-native, differentiable physically-based renderer.
+"""pbrt_tpu — a JAX-native, differentiable physically-based renderer.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 Jorgeromeu/pbrt-v3-light-portals (pbrt-v3 + light portals + hero-wavelength

@@ -1,6 +1,6 @@
 """Foundation layer (L0/L1): math, RNG, sampling, spectra.
 
-TPU-native equivalent of the reference's ``src/core/`` foundation
+JAX equivalent of the reference's ``src/core/`` foundation
 (geometry.h, rng.h, sampling.h, spectrum.h, distr.h) — everything is
 vectorized over a batch axis and jit/vmap/grad-compatible.
 """

@@ -1,7 +1,7 @@
 """Counter-based RNG for reproducible, shard-invariant sampling.
 
 Replaces the reference's stateful PCG32 (``core/rng.h:61-64``). A stateful
-generator serializes; on TPU every sample dimension is instead a pure hash of
+generator serializes; here every sample dimension is instead a pure hash of
 ``(pixel_id, sample_index, dimension, seed)`` so any ray can compute any of
 its sample values independently, in any order, on any shard — the render is
 bit-identical regardless of device mesh layout.
@@ -65,9 +65,9 @@ def u32_to_uniform(u) -> jnp.ndarray:
 
     The floor-of-top-24-bits form (rather than round(u)·2⁻³²) is chosen
     because it is exactly expressible on every backend — the (u>>8)
-    value fits float32's mantissa, and Mosaic/TPU kernels lack a
-    uint32→float32 cast, so the fused path kernel (ops/fused_path.py)
-    reproduces THIS function bit-for-bit via an int32 cast. Max output is
+    value fits float32's mantissa, so the fused path kernel
+    (ops/fused_path.py) reproduces THIS function bit-for-bit via an int32
+    cast. Max output is
     (2²⁴−1)/2²⁴ < 1, so no OneMinusEpsilon clamp is needed."""
     return (u >> jnp.uint32(8)).astype(jnp.int32).astype(jnp.float32) \
         * jnp.float32(1.0 / 16777216.0)

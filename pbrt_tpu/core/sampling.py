@@ -1,6 +1,6 @@
 """Sampling utilities: distributions, warps, MIS heuristics.
 
-TPU-native counterpart of ``core/sampling.{h,cpp}`` (Distribution1D
+JAX counterpart of ``core/sampling.{h,cpp}`` (Distribution1D
 sampling.h:55-107, Distribution2D :124-132, warps, PowerHeuristic) and the
 fork's ``core/distr.h`` DiscreteDistribution/SpectralDistribution (:23-112).
 CDF tables are plain arrays; sampling is vectorized searchsorted — no classes

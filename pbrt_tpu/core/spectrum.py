@@ -1,6 +1,6 @@
 """Spectra: RGB (3ch) and sampled (60 bins, 400–700nm) representations.
 
-TPU-native counterpart of ``core/spectrum.{h,cpp}`` (CoefficientSpectrum /
+JAX counterpart of ``core/spectrum.{h,cpp}`` (CoefficientSpectrum /
 RGBSpectrum / SampledSpectrum, spectrum.h:48-51,304) plus the fork's
 additions: ``zeroAllBinsBut``/``indexFromWavelength`` (spectrum.h:282-294),
 uniform wavelength sampling (spectrum.h:528-534) and ``SpectralDistribution``
@@ -105,12 +105,18 @@ _XYZ_TO_RGB = np.array([
 _RGB_TO_XYZ = np.linalg.inv(_XYZ_TO_RGB)
 
 
+def _mm(a: Array, b: Array) -> Array:
+    """Matrix product exact to float32 (a float32 dot may otherwise run
+    in TF32 on a GPU, keeping about three digits)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def xyz_to_rgb(xyz: Array) -> Array:
-    return xyz @ jnp.asarray(_XYZ_TO_RGB.T, xyz.dtype)
+    return _mm(xyz, jnp.asarray(_XYZ_TO_RGB.T, xyz.dtype))
 
 
 def rgb_to_xyz(rgb: Array) -> Array:
-    return rgb @ jnp.asarray(_RGB_TO_XYZ.T, rgb.dtype)
+    return _mm(rgb, jnp.asarray(_RGB_TO_XYZ.T, rgb.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -139,20 +145,20 @@ def _tables():
 def spectrum_to_rgb(spec: Array) -> Array:
     """(..., 60) sampled spectrum → (..., 3) linear RGB."""
     _, s2r, _ = _tables()
-    return spec @ jnp.asarray(s2r.T)
+    return _mm(spec, jnp.asarray(s2r.T))
 
 
 def spectrum_to_xyz(spec: Array) -> Array:
     lam = jnp.asarray(_tables()[0])
     xyz = cie_xyz(lam)  # (60,3)
     dlam = LAMBDA_RANGE / N_SPECTRAL_SAMPLES
-    return (spec @ xyz) * (dlam / CIE_Y_INTEGRAL)
+    return _mm(spec, xyz) * (dlam / CIE_Y_INTEGRAL)
 
 
 def rgb_to_spectrum(rgb: Array) -> Array:
     """(..., 3) linear RGB → (..., 60) smooth spectrum, exact round trip."""
     _, _, B = _tables()
-    return rgb @ jnp.asarray(B.T)
+    return _mm(rgb, jnp.asarray(B.T))
 
 
 def to_rgb(spec: Array, cfg: SpectrumConfig) -> Array:
@@ -167,7 +173,7 @@ def luminance(spec: Array, cfg: SpectrumConfig = RGB) -> Array:
     """Spectrum::y() — photometric luminance."""
     if cfg.mode == "rgb":
         w = jnp.asarray([0.212671, 0.715160, 0.072169], spec.dtype)
-        return spec @ w
+        return _mm(spec, w)
     return spectrum_to_xyz(spec)[..., 1]
 
 

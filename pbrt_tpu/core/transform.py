@@ -24,6 +24,12 @@ from pbrt_tpu.core.vecmath import Ray
 Array = Any
 
 
+def _mm(a: Array, b: Array) -> Array:
+    """Matrix product exact to float32: on a GPU a float32 dot may run
+    in TF32, and transformed ray origins feed SHADOW_EPS offsets."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class Transform:
@@ -31,22 +37,22 @@ class Transform:
     m_inv: Array  # (4,4)
 
     def __matmul__(self, other: "Transform") -> "Transform":
-        return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
+        return Transform(_mm(self.m, other.m), _mm(other.m_inv, self.m_inv))
 
     def inverse(self) -> "Transform":
         return Transform(self.m_inv, self.m)
 
     def apply_point(self, p: Array) -> Array:
-        r = p @ self.m[:3, :3].T + self.m[:3, 3]
-        w = p @ self.m[3, :3].T + self.m[3, 3]
+        r = _mm(p, self.m[:3, :3].T) + self.m[:3, 3]
+        w = _mm(p, self.m[3, :3].T) + self.m[3, 3]
         return jnp.where(w[..., None] == 1.0, r, r / w[..., None])
 
     def apply_vector(self, v: Array) -> Array:
-        return v @ self.m[:3, :3].T
+        return _mm(v, self.m[:3, :3].T)
 
     def apply_normal(self, n: Array) -> Array:
         # normals transform by the inverse transpose (transform.h:287)
-        return n @ self.m_inv[:3, :3]
+        return _mm(n, self.m_inv[:3, :3])
 
     def apply_ray(self, ray: Ray) -> Ray:
         return Ray(o=self.apply_point(ray.o), d=self.apply_vector(ray.d),
@@ -225,7 +231,7 @@ class AnimatedTransform:
         trans = vecmath.lerp(dt[..., None], self.t0, self.t1)
         rot = quat_to_matrix(quat_slerp(dt, self.q0, self.q1))
         sc = vecmath.lerp(dt[..., None, None], self.s0, self.s1)
-        upper = rot @ sc
+        upper = _mm(rot, sc)
         m = jnp.zeros(dt.shape + (4, 4))
         m = m.at[..., :3, :3].set(upper)
         m = m.at[..., :3, 3].set(trans)

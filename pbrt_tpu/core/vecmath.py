@@ -1,6 +1,6 @@
 """Vector/geometry math over batched ``(..., 3)`` arrays.
 
-TPU-native counterpart of the reference's ``core/geometry.h`` (Vector3f,
+JAX counterpart of the reference's ``core/geometry.h`` (Vector3f,
 Point3f, Normal3f, Ray, Bounds3f — /root/reference/src/core/geometry.h:1023-1060).
 There are no separate Point/Vector/Normal classes: everything is a jnp array
 with a trailing dimension of 3 (or 4 for wavelength packets), so every op
@@ -133,7 +133,7 @@ def refract(wi: Array, n: Array, eta: Array):
 def offset_ray_origin(p: Array, n: Array, w: Array) -> Array:
     """Robust shadow-ray origin offset (interaction.h:66-80 / OffsetRayOrigin).
 
-    The reference tracks EFloat error bounds; on TPU a scaled-normal offset is
+    The reference tracks EFloat error bounds; a scaled-normal offset is
     cheaper and adequate for float32 scenes (scale chosen per pbrt-v4's
     practice of offsetting along the normal).
     """

@@ -1,6 +1,6 @@
 """Front-end: .pbrt scene-description parser → SceneBuilder.
 
-TPU-native counterpart of L5 (core/parser.{h,cpp} tokenizer + recursive
+JAX counterpart of L5 (core/parser.{h,cpp} tokenizer + recursive
 parse(), core/api.{h,cpp} state machine, core/paramset.{h,cpp}) —
 cold-path, stays in Python, emits the typed SoA scene pytrees.
 """

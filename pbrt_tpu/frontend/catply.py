@@ -1,6 +1,6 @@
 """Scene-description reformatting: the CLI's --cat / --toply modes.
 
-TPU-native counterpart of the reference's scene-dump paths
+JAX counterpart of the reference's scene-dump paths
 (main/pbrt.cpp:66-73 flags; printing hooks throughout core/api.cpp:915-985
 and the trianglemesh→PLY conversion of api.cpp:469-520): `cat` re-emits
 every directive normalized (one per line, 4-space indent inside

@@ -1,6 +1,6 @@
 """.pbrt scene-description parser + scene-build state machine.
 
-TPU-native counterpart of L5: the tokenizer + recursive parse() of
+JAX counterpart of L5: the tokenizer + recursive parse() of
 ``core/parser.cpp:98-1080`` and the ~40-call pbrt* API state machine of
 ``core/api.cpp:367-1752`` (GraphicsState attribute stack, CTM stack,
 Make* factories), collapsed into one cold-path Python module that drives
@@ -667,7 +667,7 @@ class PbrtParser:
                 kw["img"] = self.builder.add_image(img)
                 # pbrt's imagemap defaults to EWA ("bool trilinear" false,
                 # textures/imagemap.cpp); the builder API defaults to
-                # trilinear for TPU throughput, so the parser opts in here
+                # trilinear for throughput, so the parser opts in here
                 if not p.one("trilinear"):
                     self.builder.tex_filtering = "ewa"
             except Exception:

@@ -1,6 +1,6 @@
 """Bidirectional path tracing.
 
-TPU-native counterpart of ``integrators/bdpt.{h,cpp}``:
+JAX counterpart of ``integrators/bdpt.{h,cpp}``:
 GenerateCameraSubpath/GenerateLightSubpath (:69-95) become fixed-length
 vectorized random walks storing per-vertex SoA arrays; ConnectBDPT (:401+)
 evaluates every (s,t) strategy with masks; the MIS weight (:302-399) is the

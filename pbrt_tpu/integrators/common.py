@@ -1,7 +1,7 @@
 """Shared integrator machinery: light selection, NEE with MIS, portal
 dispatch, shading frames.
 
-TPU-native counterpart of ``core/integrator.cpp``'s helpers —
+JAX counterpart of ``core/integrator.cpp``'s helpers —
 UniformSampleOneLight (:100-122), EstimateDirect (:124-258 incl. the portal
 dynamic-dispatch at :130-133) — and ``core/lightdistrib.{h,cpp}``'s
 Uniform/Power distributions.

@@ -1,6 +1,6 @@
 """Hero-wavelength spectral sampling (HWSS) integrators.
 
-TPU-native counterpart of the fork's spectral pipeline:
+JAX counterpart of the fork's spectral pipeline:
 - ``hero`` base: 4-wavelength packets sampled from the light-power spectral
   distribution with West et al.'s rotation trick
   (integrators/hero.{h,cpp}:46-48,59-65,125-134; nWvls=4 hero.h:57).

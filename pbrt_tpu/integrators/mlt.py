@@ -1,6 +1,6 @@
 """Metropolis light transport (primary-sample-space).
 
-TPU-native counterpart of ``integrators/mlt.cpp``: MLTSampler's
+JAX counterpart of ``integrators/mlt.cpp``: MLTSampler's
 primary-sample vector with large/small mutations (:75-95), bootstrap
 normalization b (:177-200), and Markov chains splatting accepted/rejected
 proposals (:165-183 onward).
@@ -49,9 +49,8 @@ def _eval_target(scene, cam, X, cfg):
     def sfn(pid, sidx, dim, seed=0):
         # integrator dim indices are Python ints → static column slices
         # (zero-cost); a traced dim falls back to a one-hot dot over the
-        # D axis — NEVER take_along_axis, whose per-ray index vector
-        # stages through SMEM on TPU (ops/fastgather.py, ~30 ms/gather
-        # at bench ray counts — VERDICT r3 Weak #4)
+        # D axis rather than take_along_axis's per-ray index gather
+        # (the small-table gather strategy of ops/fastgather.py)
         if isinstance(dim, (int, np.integer)):
             return X[:, min(int(dim), X.shape[1] - 1)]
         from pbrt_tpu.ops import fastgather

@@ -1,6 +1,6 @@
 """Render driver + the sampler-integrator family as wavefront programs.
 
-TPU-native counterpart of SamplerIntegrator::Render's tile loop
+JAX counterpart of SamplerIntegrator::Render's tile loop
 (core/integrator.cpp:526-637) and the integrators `directlighting`
 (integrators/directlighting.cpp), `path` (integrators/path.cpp), `mypath`
 (fork, integrators/mypath.cpp), `whitted` (whitted.cpp) and
@@ -87,8 +87,8 @@ def li_path(scene, o, d, pid, sidx, sfn, cfg: RenderConfig, power_distr,
     """`path` (integrators/path.cpp): NEE every bounce + BSDF continuation,
     emission collected on camera/specular vertices only, Russian roulette.
 
-    On TPU, scenes matching the fused profile (Scene.fused_profile — the
-    cornell-portal class: all-matte + one projection-strategy portal
+    On the GPU, scenes matching the fused profile (Scene.fused_profile —
+    the cornell class: all-matte + one area or projection-strategy portal
     light) run the monolithic Pallas bounce kernel instead of the
     wavefront loop; the two paths produce matching pixels (identical
     sample streams — tests/test_fused_path.py)."""
@@ -397,6 +397,14 @@ def _iparam(ip, name, default):
     return ip.get(name, default)
 
 
+def _even_chunk(spp: int, cap: int) -> int:
+    """The largest divisor of `spp` that is at most `cap`, when it keeps at
+    least half the pass size: every pass then has one shape, so render()
+    compiles one program instead of a second one for a leftover chunk."""
+    d = max(k for k in range(1, cap + 1) if spp % k == 0)
+    return d if 2 * d >= cap else cap
+
+
 def render(scene, cam, spp: int = 16, integrator: str = "path",
            sampler: str = "independent", filter_name: str = "box",
            filter_kwargs: dict = None, max_depth: int = 5, seed: int = 0,
@@ -463,10 +471,11 @@ def render(scene, cam, spp: int = 16, integrator: str = "path",
                        rr_threshold=rr_threshold)
     if chunk_spp is None:
         # bound rays/pass: the XLA CPU path materializes (R, P)
-        # intermediates, so keep CPU passes small; TPU (Pallas intersect)
-        # thrives on large batches
+        # intermediates, so keep CPU passes small; accelerators thrive on
+        # large batches
         target = 65_536 if jax.default_backend() == "cpu" else 2_000_000
-        chunk_spp = max(1, min(spp, int(target // (width * height)) or 1))
+        chunk_spp = _even_chunk(
+            spp, max(1, min(spp, int(target // (width * height)) or 1)))
     power_distr = None
     if light_strategy == "spatial":
         from pbrt_tpu.scene.lightdistrib import build_spatial_distribution

@@ -1,6 +1,6 @@
 """Stochastic progressive photon mapping.
 
-TPU-native counterpart of ``integrators/sppm.cpp`` (:63-98): per iteration a
+JAX counterpart of ``integrators/sppm.cpp`` (:63-98): per iteration a
 camera pass stores one visible point per pixel; visible points are inserted
 into a uniform hash grid (every cell their radius overlaps, ≤8 when
 radius ≤ cell size); the photon pass walks light paths and deposits flux
@@ -8,7 +8,7 @@ onto visible points found in each photon's cell; per-pixel radius/flux
 statistics shrink via the SPPM update rule (alpha=2/3).
 
 pbrt's lock-free atomic grid (sppm.cpp:87) becomes a sort-by-cell CSR
-layout + ``scatter-add`` flux accumulation — the TPU-native equivalent of
+layout + ``scatter-add`` flux accumulation — the JAX equivalent of
 atomics.
 """
 

@@ -1,6 +1,6 @@
 """Volumetric path tracing.
 
-TPU-native counterpart of ``integrators/volpath.cpp``: per segment the
+JAX counterpart of ``integrators/volpath.cpp``: per segment the
 current medium is sampled for a scattering event (volpath.cpp:55-79); medium
 interactions do NEE with transmittance-weighted visibility and continue by
 Henyey–Greenstein phase sampling; surface interactions behave like `path`.
@@ -33,7 +33,8 @@ from pbrt_tpu.scene import media as media_mod
 Array = Any
 
 # shadow rays pass through at most this many null-material boundaries
-# (VisibilityTester::Tr's unbounded while loop, bounded for the TPU)
+# (VisibilityTester::Tr's unbounded while loop, bounded for a static
+# trip count)
 _TR_SEGMENTS = 4
 
 

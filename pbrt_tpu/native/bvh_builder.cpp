@@ -1,8 +1,8 @@
 // Native SAH BVH builder.
 //
-// TPU-native framework's C++ runtime component replacing the role of
+// The framework's C++ runtime component replacing the role of
 // accelerators/bvh.cpp's recursiveBuild + flattenBVHTree (reference
-// /root/reference/src/accelerators/bvh.cpp:203-260): the build itself is a
+// src/accelerators/bvh.cpp:203-260): the build itself is a
 // host-side cold path, but for 10^5-10^6 triangle scenes a Python builder
 // is minutes while this is milliseconds. Emits the flattened depth-first
 // LinearBVHNode SoA layout consumed by the JAX/Pallas traversal
@@ -199,9 +199,8 @@ int bvh_build_sah(const float *lo, const float *hi, int n_prims,
 // ---------------------------------------------------------------------------
 // SBVH: binned SAH with SPATIAL splits (Stich et al. 2009, "Spatial
 // Splits in Bounding Volume Hierarchies"). Role of an upgraded
-// accelerators/bvh.cpp build for the TPU packet traversal: spatial
-// splits cut child-overlap on meshes like killeroo, which directly
-// reduces packet any-hit node entries. References may be DUPLICATED
+// accelerators/bvh.cpp build: spatial splits cut child-overlap on meshes
+// like killeroo, which directly reduces traversal node entries. References may be DUPLICATED
 // (a triangle straddling a split plane goes to both sides with clipped
 // bounds); the emitted prim_order therefore has n_refs >= n_prims
 // entries and downstream leaf tables index it, not the prim array.

@@ -1,7 +1,6 @@
-"""Hot-path TPU kernels (Pallas).
+"""Hot-path kernels.
 
-The reference's per-ray C++ hot loops (BVH traversal bvh.cpp:223+, shape
-intersections) map here to fused Pallas kernels: scene data stays resident
-in VMEM/SMEM, rays stream through in blocks, and no (R, P) intermediate
-ever touches HBM.
+``fused_path`` runs the whole bounce loop of small diffuse scenes as one
+Pallas kernel (through Triton, on the GPU); ``fastgather`` holds the
+row-gather helpers the XLA paths share.
 """

@@ -1,19 +1,16 @@
-"""TPU-fast row gathers for small tables.
+"""Row gathers for small tables.
 
-Why: on TPU, `table[idx]` with a per-ray index array compiles to an XLA
-gather whose indices must live in scalar memory (SMEM) — the profile of the
-bench program (PROFILE_r03.md) shows each such gather costing 8-30 ms at
-R=524k (HBM→SMEM index copies + scalar-core addressing), ~1000× off the
-VPU's streaming speed. For the small tables a renderer gathers per ray
-(material rows, light rows, per-primitive ids, triangle vertices of a small
-scene), a one-hot matmul `onehot(idx, N) @ table` is a pure
-vector/matrix-unit streaming op: 0.02-0.04 ms for the same shapes.
-
-`gather_rows` picks one-hot for N ≤ `max_onehot` and falls back to the
-plain take above it (large tables amortize the index copy; the BVH path
-gathers per-node, not per-ray). Integer/bool tables ride the same matmul
-(values < 2^24 are exact in f32 — all id/tag tables qualify); wider
-integers (e.g. Sobol matrices) must keep plain takes.
+A renderer gathers per ray from small tables (material rows, light rows,
+per-primitive ids, triangle vertices of a small scene). `gather_rows`
+picks the form by table size: an unrolled where-chain for N ≤ MAX_SELECT
+(it fuses into its consumers with no (R, N) intermediate), a one-hot
+matmul `onehot(idx, N) @ table` for N ≤ `max_onehot`, and the plain take
+above it (the BVH path gathers per node, not per ray). The forms avoid
+per-ray index gathers, which were the slow operation on the accelerator
+this code was first written for; whether they still beat a plain take on
+the GPU is not measured yet (ROADMAP Speed 7). Integer/bool tables ride
+the same matmul (values < 2^24 are exact in f32 — all id/tag tables
+qualify); wider integers (e.g. Sobol matrices) must keep plain takes.
 """
 
 from __future__ import annotations
@@ -31,7 +28,7 @@ MAX_ONEHOT = 512
 MAX_SELECT = 32
 # peak bytes allowed for the (R, N) f32 one-hot intermediate; above this the
 # matmul is chunked over R so a 2M-ray × 512-row gather cannot materialize
-# multi-GB one-hot matrices in HBM
+# multi-GB one-hot matrices in device memory
 ONEHOT_BUDGET_BYTES = 128 << 20
 
 
@@ -48,12 +45,12 @@ def _apply_select(idx: Array, leaf: Array) -> Array:
 def _apply_onehot(oh: Array, leaf: Array) -> Array:
     """(R,N) one-hot @ (N,...) table → (R,...), dtype-preserving.
 
-    The dots run at Precision.HIGHEST: TPU MXU default precision rounds f32
-    operands to bf16 (~2^-9 relative), which would silently corrupt every
-    gathered table value in the 33..512-row window — and round integer ids
-    > 256 to a WRONG row after rint. The one-hot side is exact 0/1 either
-    way; HIGHEST keeps the table side full f32. Cost is a few passes of an
-    op that replaces a ~1000× slower SMEM-index gather.
+    The dots run at Precision.HIGHEST: at default precision a float32 dot
+    may round its operands (TF32 on a GPU keeps about three decimal
+    digits), which would silently corrupt every gathered table value in
+    the 33..512-row window — and round integer ids > 256 to a WRONG row
+    after rint. The one-hot side is exact 0/1 either way; HIGHEST keeps
+    the table side full f32.
     """
     n = leaf.shape[0]
     flat = leaf.reshape(n, -1)
@@ -72,7 +69,8 @@ def _apply_onehot(oh: Array, leaf: Array) -> Array:
 
 def _onehot_gather(idx: Array, leaf: Array) -> Array:
     """One-hot-matmul gather, chunked over R when the (R, N) one-hot would
-    exceed ONEHOT_BUDGET_BYTES (bounds peak HBM; total traffic unchanged)."""
+    exceed ONEHOT_BUDGET_BYTES (bounds peak device memory; total traffic
+    unchanged)."""
     r, n = idx.shape[0], leaf.shape[0]
     if r * n * 4 <= ONEHOT_BUDGET_BYTES:
         return _apply_onehot(jax.nn.one_hot(idx, n, dtype=jnp.float32), leaf)
@@ -88,7 +86,7 @@ def _onehot_gather(idx: Array, leaf: Array) -> Array:
 def gather_rows(table: Array, idx: Array, max_onehot: int = MAX_ONEHOT
                 ) -> Array:
     """`table[idx]` for idx (R,) int — one-hot matmul when the table is
-    small (avoids the TPU SMEM-index gather path), plain take otherwise.
+    small, plain take otherwise.
     idx is clipped into range."""
     n = table.shape[0]
     idx = jnp.clip(idx, 0, n - 1)
@@ -125,7 +123,7 @@ def gather_tree(tree, idx: Array, n: int, max_onehot: int = MAX_ONEHOT):
 
 def select_component(v: Array, ax: Array) -> Array:
     """v[..., ax] for a per-element axis index ax ∈ {0..C-1}: one-hot dot
-    instead of take_along_axis (same SMEM-index hazard)."""
+    instead of take_along_axis's per-element index gather."""
     c = v.shape[-1]
     oh = jax.nn.one_hot(ax, c, dtype=v.dtype if jnp.issubdtype(
         v.dtype, jnp.floating) else jnp.float32)

@@ -1,16 +1,16 @@
-"""Monolithic fused path-bounce kernel (Pallas, TPU) for small diffuse
-portal scenes — the cornell-class workload of bench.py.
+"""Monolithic fused path-bounce kernel (Pallas through Triton) for small
+diffuse portal scenes — the cornell-class workload of bench.py.
 
-Motivation (PROFILE_r04.md §3): the generic wavefront loop
-(integrators/render.py _li_loop) lowers to ~60 sequential XLA fusions per
-pass, each one a full HBM sweep over 2M-lane ray state; the loop runs AT
-the device-measured HBM streaming roofline (~49 GB/s on this chip), so
-the only way materially past ~535 Mrays/s is fewer/narrower HBM passes.
-This kernel collapses the ENTIRE bounce loop — per-bounce closest-hit
-(all-pairs, SMEM prim table), portal-projection NEE (one shadow/emission
-closest-hit), cosine continuation and russian roulette — into ONE Pallas
-pass over the ray batch: per-ray state (o, d, beta, masks) lives in
-registers/VMEM across all bounces and never round-trips HBM.
+Motivation: the generic wavefront loop (integrators/render.py _li_loop)
+runs each bounce as many separate XLA fusions, each a full sweep of the
+2M-lane ray state through device memory, traces 3 closest-hit sweeps per
+bounce, and its VJP traces every one of them again. This kernel
+collapses the ENTIRE bounce loop — per-bounce closest-hit (all-pairs
+against a broadcast-loaded prim table), portal-projection NEE (one
+shadow/emission closest-hit), cosine continuation and russian roulette —
+into ONE pass over the ray batch: each program owns a 1-D block of
+``BLOCK`` rays whose state (o, d, beta, masks) stays in registers across
+all bounces and never round-trips device memory.
 
 Differentiation (detached-sampling design, SURVEY.md §7): the kernel
 emits, per bounce, a handful of *parameter-independent* scalar residuals
@@ -33,7 +33,8 @@ lights/portal_arealight.cpp:29-239 + aaportal.cpp SampleProj; light-only
 NEE, 2 sweeps/bounce), 0 = plain diffuse area light (the classic
 cornell-box class; full two-sample-MIS NEE per EstimateDirect,
 integrator.cpp:142-250 — light half + BSDF half, 3 sweeps/bounce).
-Everything else falls back to the generic wavefront loop.
+Everything else, and every backend but the GPU, runs the generic
+wavefront loop.
 
 Semantics mirrored 1:1 from the XLA path (file:line refs inline):
 integrators/render.py _li_loop, integrators/common.py estimate_direct,
@@ -51,22 +52,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 Array = Any
 
-LANES = 128
-ROWS = 32           # rays per block = 4096 (r5 scan: 8/16/32/64/128 →
-                    # 27.1/18.3/16.1/16.1/16.1 ms/pass on-chip; 32 is the
-                    # plateau knee)
-CLUSTER = 32        # triangles per cull cluster (SMEM mini-BVH leaves)
+BLOCK = 256         # rays per program (power of two: Triton block rule)
+NUM_WARPS = 4
+CLUSTER = 32        # triangles per cull cluster (mini-BVH leaves)
 CLUSTER_MIN_TRI = 64  # below this the flat all-pairs sweep wins
 BIG = 1e30
 INV_PI = 1.0 / np.pi
-ONE_MINUS_EPS = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
 SHADOW_EPS = 1e-3   # vecmath.SHADOW_EPS
 _DIM_BASE = 6       # integrators/render.py _bounce_dims
 _DIM_STRIDE = 10
+_PCG_MUL = 1664525
+_PCG_INC = 1013904223
 
 # residual `code` bit layout (per bounce, per lane)
 _MAT_MASK = 7       # bits 0-2: hit material row
@@ -76,23 +76,14 @@ _B_EMIT = 32        # bit 5: camera/specular-chain emission hit (bounce 0)
 
 
 def eligible(scene, cfg, power_distr=None, time=None) -> bool:
-    """Static dispatch gate for the fused path (checked at trace time)."""
-    import os
-
-    if os.environ.get("PBRT_TPU_NO_PALLAS") \
-            or os.environ.get("PBRT_TPU_NO_FUSED"):
-        return False
-    if jax.default_backend() in ("cpu",):
-        return False
-    if getattr(scene, "fused_profile", None) is None:
-        return False
-    if power_distr is not None or time is not None:
-        return False
-    if cfg.sampler != "independent" or cfg.light_strategy != "uniform":
-        return False
-    if cfg.collect_stats:
-        return False
-    return True
+    """Static dispatch gate for the fused path (checked at trace time):
+    the GPU backend and a scene + config inside the kernel's profile."""
+    return (jax.default_backend() == "gpu"
+            and getattr(scene, "fused_profile", None) is not None
+            and power_distr is None and time is None
+            and cfg.sampler == "independent"
+            and cfg.light_strategy == "uniform"
+            and not cfg.collect_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +95,10 @@ def _axes_of(ax: int):
     return {2: (0, 1), 0: (1, 2), 1: (2, 0)}[ax]
 
 
+def _u32_const(x: int):
+    return jnp.uint32(x % (1 << 32))
+
+
 def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
             dx_ref, dy_ref, dz_ref, pid_ref, sid_ref, code_out, knee_out,
             kc_out, *, n_tri, n_b, ax, pl_facing, portal_facing, n_mat,
@@ -111,28 +106,27 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
     ax0, ax1 = _axes_of(ax)
     f32 = jnp.float32
     sgn_pl = 1.0 if pl_facing else -1.0          # light-plane normal sign
-    sgn_po = 1.0 if portal_facing else -1.0      # portal normal sign
 
-    ox = ox_ref[:, :]
-    oy = oy_ref[:, :]
-    oz = oz_ref[:, :]
-    dx = dx_ref[:, :]
-    dy = dy_ref[:, :]
-    dz = dz_ref[:, :]
+    ox = ox_ref[...]
+    oy = oy_ref[...]
+    oz = oz_ref[...]
+    dx = dx_ref[...]
+    dy = dy_ref[...]
+    dz = dz_ref[...]
     zero = ox * 0.0
     one = zero + 1.0
 
-    pid_u = pid_ref[:, :].astype(jnp.uint32)
-    sid_u = sid_ref[:, :].astype(jnp.uint32)
+    mul = jnp.uint32(_PCG_MUL)
+    inc = jnp.uint32(_PCG_INC)
+    pid_v0 = pid_ref[...].astype(jnp.uint32) * mul + inc
+    sid_v1 = sid_ref[...].astype(jnp.uint32) * mul + inc
 
     def unif(dim):
-        # core/rng.py pcg4d → u32_to_uniform, bit-exact (uint32 vector ops)
-        mul = jnp.uint32(1664525)
-        inc = jnp.uint32(1013904223)
-        v0 = pid_u * mul + inc
-        v1 = sid_u * mul + inc
-        v2 = jnp.uint32(dim) * mul + inc + (pid_u & jnp.uint32(0))
-        v3 = jnp.uint32(seed) * mul + inc + (pid_u & jnp.uint32(0))
+        # core/rng.py pcg4d → u32_to_uniform, bit-exact; the dim and seed
+        # lanes are static, so their LCG step folds to constants
+        v0, v1 = pid_v0, sid_v1
+        v2 = _u32_const(dim * _PCG_MUL + _PCG_INC)
+        v3 = _u32_const(seed * _PCG_MUL + _PCG_INC)
         v0 = v0 + v1 * v3
         v1 = v1 + v2 * v0
         v2 = v2 + v0 * v1
@@ -142,37 +136,29 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         v2 = v2 ^ (v2 >> 16)
         v3 = v3 ^ (v3 >> 16)
         v0 = v0 + v1 * v3
-        # floor-top-24-bits form of rng.u32_to_uniform — bit-exact with
-        # the XLA path and Mosaic-expressible (no u32→f32 cast on TPU)
+        # floor-top-24-bits form of rng.u32_to_uniform (bit-exact)
         return (v0 >> jnp.uint32(8)).astype(jnp.int32).astype(f32) \
             * f32(1.0 / 16777216.0)
 
-    # scene scalars (SMEM)
+    # scene scalars
     pl_lo = [msc_ref[0, k] for k in range(3)]
     pl_hi = [msc_ref[0, 3 + k] for k in range(3)]
     pl_mat = msc_ref[0, 6]
     po_lo = [msc_ref[0, 7 + k] for k in range(3)]
     po_hi = [msc_ref[0, 10 + k] for k in range(3)]
 
-    def comp(v3_, k):
-        return v3_[k]
-
     def sweep(rox, roy, roz, rdx, rdy, rdz, want_attrs):
-        """Closest-hit over triangles + the aaplane (same tests as
-        ops/intersect_pallas.py _intersect_kernel)."""
+        """Closest-hit over triangles + the aaplane (the tests of
+        scene/shapes.py intersect_triangles / intersect_aaplanes). Every
+        lane reads the same table row, so the loads are broadcasts."""
         bt = zero + BIG
         bp = jnp.full(zero.shape, -1, jnp.int32)
+        carry0 = (bt, bp)
         if want_attrs:
-            nxb = zero
-            nyb = zero
-            nzb = zero
-            mb = zero
+            carry0 = (bt, bp, zero, zero, zero, zero)
 
         def tri_body(i, carry):
-            if want_attrs:
-                bt_, bp_, nx_, ny_, nz_, m_ = carry
-            else:
-                bt_, bp_ = carry
+            bt_, bp_ = carry[0], carry[1]
             v0x = tri_ref[i, 0]
             v0y = tri_ref[i, 1]
             v0z = tri_ref[i, 2]
@@ -198,26 +184,20 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
             t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
             hit = ((jnp.abs(det) > 1e-12) & (u >= 0.0) & (v >= 0.0)
                    & (u + v <= 1.0) & (t > 1e-4) & (t < bt_))
-            bt_ = jnp.where(hit, t, bt_)
-            bp_ = jnp.where(hit, bp_ * 0 + i, bp_)
+            out = (jnp.where(hit, t, bt_), jnp.where(hit, i, bp_))
             if want_attrs:
-                nx_ = jnp.where(hit, tri_ref[i, 9] + zero, nx_)
-                ny_ = jnp.where(hit, tri_ref[i, 10] + zero, ny_)
-                nz_ = jnp.where(hit, tri_ref[i, 11] + zero, nz_)
-                m_ = jnp.where(hit, tri_ref[i, 12] + zero, m_)
-                return bt_, bp_, nx_, ny_, nz_, m_
-            return bt_, bp_
+                out += tuple(jnp.where(hit, tri_ref[i, 9 + k], carry[2 + k])
+                             for k in range(4))
+            return out
 
-        carry0 = (bt, bp, nxb, nyb, nzb, mb) if want_attrs else (bt, bp)
         if n_clu == 0:
             carry = jax.lax.fori_loop(0, n_tri, tri_body, carry0)
         else:
-            # SMEM mini-BVH (r5 widening): triangles are grouped into
-            # CLUSTER-row leaves (builder order preserved — culling is
-            # conservative, so results are bit-identical to the flat
-            # sweep); a block-uniform slab test against the cluster AABB
-            # skips the whole leaf when NO lane's [0, t_best] segment
-            # overlaps it. Divergence-free: all lanes agree on the skip.
+            # mini-BVH: triangles are grouped into CLUSTER-row leaves
+            # (builder order preserved — culling is conservative, so
+            # results are bit-identical to the flat sweep); a
+            # block-uniform slab test against the cluster AABB skips the
+            # whole leaf when NO lane's [0, t_best] segment overlaps it.
             def _inv(dd):
                 mag = jnp.maximum(jnp.abs(dd), 1e-30)
                 return jnp.where(dd >= 0.0, 1.0, -1.0) / mag
@@ -239,40 +219,38 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
                 ov = (tfar >= jnp.maximum(tnear, 0.0)) & (tnear <= bt_)
 
                 def inner(c):
-                    return jax.lax.fori_loop(ci * CLUSTER,
-                                             ci * CLUSTER + CLUSTER,
-                                             tri_body, c)
+                    return jax.lax.fori_loop(
+                        0, CLUSTER,
+                        lambda j, cc: tri_body(ci * CLUSTER + j, cc), c)
 
-                return jax.lax.cond(jnp.any(ov), inner, lambda c: c,
-                                    carry)
+                # block-wide any() as a max over an int mask (Triton has
+                # no boolean reduction)
+                any_ov = jnp.max(ov.astype(jnp.int32)) > 0
+                return jax.lax.cond(any_ov, inner, lambda c: c, carry)
 
             carry = jax.lax.fori_loop(0, n_clu, clu_body, carry0)
-        if want_attrs:
-            bt, bp, nxb, nyb, nzb, mb = carry
-        else:
-            bt, bp = carry
+        bt, bp = carry[0], carry[1]
 
         # the single aaplane (static axis; plane.cpp:15-55 slab test)
         o_ax = (rox, roy, roz)[ax]
         d_ax = (rdx, rdy, rdz)[ax]
-        pc = pl_lo[ax] + zero
-        t = (pc - o_ax) / jnp.where(jnp.abs(d_ax) > 1e-12, d_ax, 1e-12)
+        t = (pl_lo[ax] - o_ax) / jnp.where(jnp.abs(d_ax) > 1e-12, d_ax,
+                                           1e-12)
         h0 = (rox, roy, roz)[ax0] + t * (rdx, rdy, rdz)[ax0]
         h1 = (rox, roy, roz)[ax1] + t * (rdx, rdy, rdz)[ax1]
         hitp = ((jnp.abs(d_ax) > 1e-12) & (t > 1e-4) & (t < bt)
-                & (h0 > pl_lo[ax0] + zero) & (h0 < pl_hi[ax0] + zero)
-                & (h1 > pl_lo[ax1] + zero) & (h1 < pl_hi[ax1] + zero))
+                & (h0 > pl_lo[ax0]) & (h0 < pl_hi[ax0])
+                & (h1 > pl_lo[ax1]) & (h1 < pl_hi[ax1]))
         bt = jnp.where(hitp, t, bt)
-        bp = jnp.where(hitp, bp * 0 + n_tri, bp)
-        if want_attrs:
-            axis_n = [0.0, 0.0, 0.0]
-            axis_n[ax] = sgn_pl
-            nxb = jnp.where(hitp, axis_n[0] + zero, nxb)
-            nyb = jnp.where(hitp, axis_n[1] + zero, nyb)
-            nzb = jnp.where(hitp, axis_n[2] + zero, nzb)
-            mb = jnp.where(hitp, pl_mat + zero, mb)
-            return bt, bp, nxb, nyb, nzb, mb
-        return bt, bp
+        bp = jnp.where(hitp, n_tri, bp)
+        if not want_attrs:
+            return bt, bp
+        axis_n = [0.0, 0.0, 0.0]
+        axis_n[ax] = sgn_pl
+        nxb, nyb, nzb = (jnp.where(hitp, axis_n[k], carry[2 + k])
+                         for k in range(3))
+        mb = jnp.where(hitp, pl_mat, carry[5])
+        return bt, bp, nxb, nyb, nzb, mb
 
     # ---- per-lane state across bounces
     beta = [one, one, one]
@@ -304,13 +282,11 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
 
         if b == n_b - 1:
             # pbrt's termination order (path.cpp:23-24): the final
-            # iteration collects emission only — no NEE, no
-            # continuation (r5 depth-convention fix, matching _li_loop;
-            # also saves the last iteration's shadow sweeps)
+            # iteration collects emission only — no NEE, no continuation
             code = matf.astype(jnp.int32) + jnp.where(kemit, _B_EMIT, 0)
-            code_out[b, :, :] = code
-            knee_out[b, :, :] = zero
-            kc_out[b, :, :] = zero
+            code_out[b, :] = code
+            knee_out[b, :] = zero
+            kc_out[b, :] = zero
             continue
 
         # shading frame (Duff; vecmath.coordinate_system)
@@ -342,8 +318,7 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         wlx_f = tox * rl
         wly_f = toy * rl
         wlz_f = toz * rl
-        area_l = ((pl_hi[ax0] - pl_lo[ax0]) * (pl_hi[ax1] - pl_lo[ax1])
-                  + zero)
+        area_l = (pl_hi[ax0] - pl_lo[ax0]) * (pl_hi[ax1] - pl_lo[ax1])
         cos_l = jnp.abs((wlx_f, wly_f, wlz_f)[ax])
         pdf_fb = d2l / (jnp.maximum(area_l, 1e-20)
                         * jnp.maximum(cos_l, 1e-9))
@@ -351,10 +326,10 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         # portal in-front half-space test (aaportal.cpp:101 / plane.cpp
         # InFront): forward side of the portal plane
         p_axv = (px, py, pz)[ax]
-        if portal_facing:        # static: avoids a bool-vector broadcast
-            in_front = p_axv > po_lo[ax] + zero
+        if portal_facing:
+            in_front = p_axv > po_lo[ax]
         else:
-            in_front = p_axv < po_lo[ax] + zero
+            in_front = p_axv < po_lo[ax]
 
         # projection sampling (aaportal.cpp SampleProj via
         # scene/portals.py sample_projection): project the light rect's
@@ -362,9 +337,9 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         po_c = po_lo[ax]
 
         def project(lc):
-            dvx = px - (lc[0] + zero)
-            dvy = py - (lc[1] + zero)
-            dvz = pz - (lc[2] + zero)
+            dvx = px - lc[0]
+            dvy = py - lc[1]
+            dvz = pz - lc[2]
             d_axv = (dvx, dvy, dvz)[ax]
             tt = (po_c - lc[ax]) / jnp.where(jnp.abs(d_axv) > 1e-12,
                                              d_axv, 1e-12)
@@ -374,11 +349,11 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
 
         plo0, plo1, ok_lo = project(pl_lo)
         phi0, phi1, ok_hi = project(pl_hi)
-        cmin0 = jnp.maximum(po_lo[ax0] + zero, jnp.minimum(plo0, phi0))
-        cmax0 = jnp.minimum(po_hi[ax0] + zero, jnp.maximum(plo0, phi0))
+        cmin0 = jnp.maximum(po_lo[ax0], jnp.minimum(plo0, phi0))
+        cmax0 = jnp.minimum(po_hi[ax0], jnp.maximum(plo0, phi0))
         len0 = jnp.maximum(cmax0 - cmin0, 0.0)
-        cmin1 = jnp.maximum(po_lo[ax1] + zero, jnp.minimum(plo1, phi1))
-        cmax1 = jnp.minimum(po_hi[ax1] + zero, jnp.maximum(plo1, phi1))
+        cmin1 = jnp.maximum(po_lo[ax1], jnp.minimum(plo1, phi1))
+        cmax1 = jnp.minimum(po_hi[ax1], jnp.maximum(plo1, phi1))
         len1 = jnp.maximum(cmax1 - cmin1, 0.0)
         area_p = len0 * len1
         okp = ok_lo & ok_hi & (area_p > 1e-12)
@@ -423,8 +398,6 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         o2y = py + scale * nfs * ny
         o2z = pz + scale * nfs * nz
         bt2, bp2 = sweep(o2x, o2y, o2z, wix, wiy, wiz, False)
-        # emission of whatever was hit, toward -wi (portal estimator
-        # uses le2 = Le of the hit emitter; only the aaplane emits)
         # emission toward the shading point travels along -wi: one-sided
         # L requires dot(n_light, -wi) > 0 (lights.py area_light_L)
         wi_axc = (wix, wiy, wiz)[ax]
@@ -453,27 +426,8 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
                 pdf_nee * pdf_nee + p_scat * p_scat, 1e-20)
             knee = knee * w_l
 
-            u_b0 = unif(base + 4)
-            u_b1 = unif(base + 5)
-            pi4b = f32(np.pi / 4)
-            pi2b = f32(np.pi / 2)
-            bxo = 2.0 * u_b0 - 1.0
-            byo = 2.0 * u_b1 - 1.0
-            zero_b = (bxo == 0.0) & (byo == 0.0)
-            use_xb = jnp.abs(bxo) > jnp.abs(byo)
-            rb_ = jnp.where(use_xb, bxo, byo)
-            thb = jnp.where(
-                use_xb, pi4b * (byo / jnp.where(bxo == 0.0, 1.0, bxo)),
-                pi2b - pi4b * (bxo / jnp.where(byo == 0.0, 1.0, byo)))
-            rb_ = jnp.where(zero_b, 0.0, rb_)
-            thb = jnp.where(zero_b, 0.0, thb)
-            bdx = rb_ * jnp.cos(thb)
-            bdy = rb_ * jnp.sin(thb)
-            bdz = jnp.sqrt(jnp.maximum(0.0, 1.0 - bdx * bdx - bdy * bdy))
-            sflip_b = jnp.sign(woz + 1e-20)
-            wbx_l = bdx * sflip_b
-            wby_l = bdy * sflip_b
-            wbz_l = bdz * sflip_b
+            wbx_l, wby_l, wbz_l = _cosine_dir(unif(base + 4),
+                                              unif(base + 5), woz)
             wbx = wbx_l * t1x + wby_l * t2x + wbz_l * nx
             wby = wbx_l * t1y + wby_l * t2y + wbz_l * ny
             wbz = wbx_l * t1z + wby_l * t2z + wbz_l * nz
@@ -499,28 +453,7 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
             knee = knee + knee_b
 
         # ---------------- continuation (matte cosine lobe)
-        u_c0 = unif(base + 7)
-        u_c1 = unif(base + 8)
-        # concentric disk (sampling.py:178-190)
-        uxo = 2.0 * u_c0 - 1.0
-        uyo = 2.0 * u_c1 - 1.0
-        zero_d = (uxo == 0.0) & (uyo == 0.0)
-        use_x = jnp.abs(uxo) > jnp.abs(uyo)
-        rr_ = jnp.where(use_x, uxo, uyo)
-        pi4 = f32(np.pi / 4)
-        pi2 = f32(np.pi / 2)
-        theta = jnp.where(
-            use_x, pi4 * (uyo / jnp.where(uxo == 0.0, 1.0, uxo)),
-            pi2 - pi4 * (uxo / jnp.where(uyo == 0.0, 1.0, uyo)))
-        rr_ = jnp.where(zero_d, 0.0, rr_)
-        theta = jnp.where(zero_d, 0.0, theta)
-        ddx = rr_ * jnp.cos(theta)
-        ddy = rr_ * jnp.sin(theta)
-        ddz = jnp.sqrt(jnp.maximum(0.0, 1.0 - ddx * ddx - ddy * ddy))
-        sflip = jnp.sign(woz + 1e-20)
-        wcx = ddx * sflip
-        wcy = ddy * sflip
-        wcz = ddz * sflip
+        wcx, wcy, wcz = _cosine_dir(unif(base + 7), unif(base + 8), woz)
         # world direction through the shading frame
         wwx = wcx * t1x + wcy * t2x + wcz * nx
         wwy = wcx * t1y + wcy * t2y + wcz * ny
@@ -538,7 +471,7 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         for mrow in range(n_mat):
             sel = mi == mrow
             for c in range(3):
-                kdv[c] = jnp.where(sel, kd_ref[mrow, c] + zero, kdv[c])
+                kdv[c] = jnp.where(sel, kd_ref[mrow, c], kdv[c])
         bn = [beta[c] * kdv[c] * kc for c in range(3)]
         bmax = jnp.maximum(bn[0], jnp.maximum(bn[1], bn[2]))
         alive = active & (pdf_c > 0.0) & (bmax > 0.0)
@@ -558,27 +491,45 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
         code = (mi + jnp.where(alive, _B_ALIVE, 0)
                 + jnp.where(rr_div, _B_RRDIV, 0)
                 + jnp.where(kemit, _B_EMIT, 0))
-        code_out[b, :, :] = code
-        knee_out[b, :, :] = knee
-        kc_out[b, :, :] = kc
+        code_out[b, :] = code
+        knee_out[b, :] = knee
+        kc_out[b, :] = kc
 
         # state update (render.py _li_loop tail)
         beta = [jnp.where(alive, bn[c], beta[c]) for c in range(3)]
         ndw2 = nx * wwx + ny * wwy + nz * wwz
         nfs2 = jnp.where(ndw2 < 0.0, -1.0, 1.0)
-        onx = px + scale * nfs2 * nx
-        ony = py + scale * nfs2 * ny
-        onz = pz + scale * nfs2 * nz
-        cox = jnp.where(alive, onx, cox)
-        coy = jnp.where(alive, ony, coy)
-        coz = jnp.where(alive, onz, coz)
+        cox = jnp.where(alive, px + scale * nfs2 * nx, cox)
+        coy = jnp.where(alive, py + scale * nfs2 * ny, coy)
+        coz = jnp.where(alive, pz + scale * nfs2 * nz, coz)
         cdx = jnp.where(alive, wwx, cdx)
         cdy = jnp.where(alive, wwy, cdy)
         cdz = jnp.where(alive, wwz, cdz)
-        # matte: never specular → where(alive, False, spec); written as a
-        # mask AND because Mosaic cannot select over i1 vectors
-        spec = spec & ~alive
+        spec = spec & ~alive       # matte: never specular
         active = alive
+
+
+def _cosine_dir(u0, u1, woz):
+    """Cosine-hemisphere direction in the local frame, flipped to wo's
+    side: concentric disk (sampling.py:178-190) lifted to the sphere."""
+    f32 = jnp.float32
+    uxo = 2.0 * u0 - 1.0
+    uyo = 2.0 * u1 - 1.0
+    zero_d = (uxo == 0.0) & (uyo == 0.0)
+    use_x = jnp.abs(uxo) > jnp.abs(uyo)
+    r = jnp.where(use_x, uxo, uyo)
+    pi4 = f32(np.pi / 4)
+    pi2 = f32(np.pi / 2)
+    theta = jnp.where(
+        use_x, pi4 * (uyo / jnp.where(uxo == 0.0, 1.0, uxo)),
+        pi2 - pi4 * (uxo / jnp.where(uyo == 0.0, 1.0, uyo)))
+    r = jnp.where(zero_d, 0.0, r)
+    theta = jnp.where(zero_d, 0.0, theta)
+    ddx = r * jnp.cos(theta)
+    ddy = r * jnp.sin(theta)
+    ddz = jnp.sqrt(jnp.maximum(0.0, 1.0 - ddx * ddx - ddy * ddy))
+    sflip = jnp.sign(woz + 1e-20)
+    return ddx * sflip, ddy * sflip, ddz * sflip
 
 
 # ---------------------------------------------------------------------------
@@ -588,52 +539,48 @@ def _kernel(tri_ref, msc_ref, kd_ref, clu_ref, ox_ref, oy_ref, oz_ref,
 @functools.partial(
     jax.jit, static_argnames=("n_tri", "n_b", "ax", "pl_facing",
                               "portal_facing", "n_mat", "seed",
-                              "rr_threshold", "mode", "n_clu",
-                              "interpret"))
+                              "rr_threshold", "mode", "n_clu", "interpret"))
 def _impl(tri_tab, msc, kd, clu, o, d, pid, sidx, *, n_tri, n_b, ax,
           pl_facing, portal_facing, n_mat, seed, rr_threshold, mode,
           n_clu=0, interpret=False):
+    """Residuals (code, knee, kc), each (n_b, R), for R rays. The ray
+    batch is padded to a multiple of ``BLOCK``; padded lanes are dropped."""
     R = o.shape[0]
-    block = ROWS * LANES
-    Rpad = ((R + block - 1) // block) * block
-    pad = Rpad - R
+    pad = -R % BLOCK
+    Rpad = R + pad
 
     def pad1(x, fill):
-        return jnp.concatenate(
-            [x, jnp.full(pad, fill, x.dtype)]) if pad else x
+        return jnp.pad(x, (0, pad), constant_values=fill) if pad else x
 
-    comps = [pad1(o[:, k], 0.0).reshape(-1, LANES) for k in range(3)]
-    comps += [pad1(d[:, k], 1.0).reshape(-1, LANES) for k in range(3)]
-    comps += [pad1(pid.astype(jnp.int32), 0).reshape(-1, LANES),
-              pad1(sidx.astype(jnp.int32), 0).reshape(-1, LANES)]
-    n_blocks = Rpad // block
+    comps = [pad1(o[:, k], 0.0) for k in range(3)]
+    comps += [pad1(d[:, k], 1.0) for k in range(3)]
+    comps += [pad1(pid.astype(jnp.int32), 0),
+              pad1(sidx.astype(jnp.int32), 0)]
 
     kernel = functools.partial(
         _kernel, n_tri=n_tri, n_b=n_b, ax=ax, pl_facing=pl_facing,
         portal_facing=portal_facing, n_mat=n_mat, seed=seed,
         rr_threshold=rr_threshold, mode=mode, n_clu=n_clu)
-    smem = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                      memory_space=pltpu.SMEM)
-    ray_spec = pl.BlockSpec((ROWS, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    res_spec = pl.BlockSpec((n_b, ROWS, LANES), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
+    tables = (tri_tab, msc, kd, clu)
+    whole = [pl.BlockSpec(t.shape, lambda i: (0, 0)) for t in tables]
+    ray_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    res_spec = pl.BlockSpec((n_b, BLOCK), lambda i: (0, i))
+    # under shard_map the residuals vary over the mesh axes the rays do
+    vma = frozenset().union(*(jax.typeof(x).vma for x in comps))
     code, knee, kc = pl.pallas_call(
         kernel,
-        grid=(n_blocks,),
-        in_specs=[smem(tri_tab.shape), smem(msc.shape), smem(kd.shape),
-                  smem(clu.shape)]
-        + [ray_spec] * 8,
-        out_specs=[res_spec, res_spec, res_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_b, Rpad // LANES, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((n_b, Rpad // LANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((n_b, Rpad // LANES, LANES), jnp.float32),
-        ],
+        grid=(Rpad // BLOCK,),
+        in_specs=whole + [ray_spec] * 8,
+        out_specs=[res_spec] * 3,
+        out_shape=[jax.ShapeDtypeStruct((n_b, Rpad), dt, vma=vma)
+                   for dt in (jnp.int32, jnp.float32, jnp.float32)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(tri_tab, msc, kd, clu, *comps)
-    return (code.reshape(n_b, -1)[:, :R], knee.reshape(n_b, -1)[:, :R],
-            kc.reshape(n_b, -1)[:, :R])
+        name="fused_path",
+    )(*tables, *comps)
+    return code[:, :R], knee[:, :R], kc[:, :R]
 
 
 def replay(kd, emit, code, knee, kc, rr_threshold=1.0):
@@ -669,8 +616,9 @@ def replay(kd, emit, code, knee, kc, rr_threshold=1.0):
 
 
 def pack_fused(scene, mode):
-    """Trace-time packing of the prim/scene tables into SMEM layouts.
+    """Trace-time packing of the prim/scene tables.
 
+    tri_tab rows are [v0 | e1 | e2 | n | material | 0 0 0] (16 floats).
     For scenes past CLUSTER_MIN_TRI triangles, also emits a (n_clu, 8)
     cluster-AABB table over contiguous CLUSTER-row runs (builder order —
     preserving the exact flat-sweep hit results) for the kernel's
@@ -726,8 +674,8 @@ def pack_fused(scene, mode):
 
 
 def li_path_fused(scene, o, d, pid, sidx, cfg, interpret=False):
-    """Fused-path Li: pallas residual kernel + XLA replay. Drop-in for
-    _li_loop under the `eligible` gate (R,C) radiance out."""
+    """Fused-path Li: residual kernel + XLA replay. Drop-in for _li_loop
+    under the `eligible` gate; (R,C) radiance out."""
     ax, pl_facing, portal_facing, n_mat, mode = scene.fused_profile
     n_b = cfg.max_depth + 1
     tri_tab, msc, clu, n_clu = pack_fused(scene, mode)

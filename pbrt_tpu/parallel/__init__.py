@@ -1,6 +1,6 @@
 """Multi-chip rendering: sample/pixel sharding over a device mesh.
 
-TPU-native counterpart of the reference's *entire* parallel runtime — the
+JAX counterpart of the reference's *entire* parallel runtime — the
 pthread pool + work-stealing tile list of core/parallel.{h,cpp}:45-143 and
 the mutex film merge (core/film.h:93). The tile decomposition becomes a
 sharded sample-batch axis under ``shard_map``; the film merge becomes a

@@ -1,26 +1,30 @@
 """Multi-host (multi-process) initialization + mesh construction.
 
 The reference scales with a single-machine thread pool
-(core/parallel.cpp); the TPU-native scale-out axis is hosts × chips. This
+(core/parallel.cpp); here the scale-out axis is hosts × cards. This
 module is the jax.distributed entry point (SURVEY §7 step 7): every
 process calls :func:`initialize_multihost` once before touching jax
 arrays, then builds a host-aware mesh with :func:`make_multihost_mesh`
 and calls the SAME `render_sharded` / `make_train_step` as single-host
 code — shard_map and the psum collectives are topology-agnostic.
 
-DCN mesh recipe (why dp spans hosts):
+Mesh recipe (why dp spans hosts):
 - The 'dp' (sample-split) axis carries exactly ONE collective per render
-  pass — the film psum (a few MB) — so it rides the slow cross-host DCN
-  without hurting step time.
+  pass — the film psum (a few MB) — so it rides the slower network
+  between hosts without hurting step time.
 - The 'sp' (row-slab) axis needs no communication in the forward pass at
   all, but its gradient transpose all-gathers per-slab activations, so
-  keep it on intra-host ICI.
-Hence: dp = hosts (× any spare local factor), sp = within-host chips.
+  keep it on the cards of one host, which NVLink joins all to all.
+Hence: dp = hosts (× any spare local factor), sp = within-host cards.
+Within one host every card reaches every other at the same rate, so a
+single-host mesh follows the algorithm alone (make_mesh).
 
-This cannot be *measured* here (single real chip), but the wiring is
-exercised process-locally: a 1-process `jax.distributed.initialize`
-against a local coordinator, then the normal sharded render on whatever
-devices exist (tests/test_parallel.py::test_multihost_*).
+The wiring is exercised process-locally: a 1-process
+`jax.distributed.initialize` against a local coordinator, then the normal
+sharded render on whatever devices exist
+(tests/test_parallel.py::test_multihost_*). Nothing on a single machine
+tells JAX of a cluster, so give a real multi-host run its
+coordinator_address, num_processes and process_id explicitly.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def initialize_multihost(coordinator_address: str | None = None,
                          local_device_ids=None) -> int:
     """Idempotent `jax.distributed.initialize` wrapper.
 
-    With no arguments, auto-detects the environment (TPU pod metadata /
-    SLURM / Open MPI — jax's own detection). Explicit arguments support
+    With no arguments, auto-detects the environment (SLURM / Open MPI —
+    jax's own detection). Explicit arguments support
     manual rendezvous: a coordinator `host:port`, the process count, and
     this process's id. Returns `jax.process_count()` after init.
 

@@ -1,6 +1,6 @@
 """Samplers: independent, stratified, Halton, Sobol (0,2)-sequence.
 
-TPU-native counterpart of ``src/samplers/`` + core/sampler.h:50-128 and the
+JAX counterpart of ``src/samplers/`` + core/sampler.h:50-128 and the
 low-discrepancy machinery of core/lowdiscrepancy.h:50-229. pbrt samplers are
 stateful objects walking a dimension counter; here a sampler is a *pure
 function* ``u = sample(pixel_id, sample_idx, dim)`` — any ray can evaluate

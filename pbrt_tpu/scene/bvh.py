@@ -1,13 +1,13 @@
 """BVH: host-side binned-SAH build + flattened on-device traversal.
 
-TPU-native counterpart of ``accelerators/bvh.{h,cpp}``: the recursive
+JAX counterpart of ``accelerators/bvh.{h,cpp}``: the recursive
 pointer-based build (bvh.cpp:203-260) runs on host (numpy / native C++, cold
 path) and is flattened into the depth-first LinearBVHNode array layout
 (bvh.cpp:223, bvh.h:88) as SoA device arrays.
 
 Traversal is **stackless**, unlike the reference's explicit-stack walk
 (bvh.cpp:299-365): per-lane stacks would lower to (R, depth) scatters every
-step — poison on the VPU. Instead the flat DFS layout is threaded with
+step. Instead the flat DFS layout is threaded with
 octant-ordered hit/miss links (a "threaded BVH"): for each of the 8 ray
 direction octants, `first[o,i]` is the near child of interior node i and
 `miss[o,i]` is the node that follows once i's subtree is done or skipped.
@@ -61,13 +61,6 @@ class FlatBVH:
     # leaf primitive test.
     nodes8: Array = None      # (8N, 8) float32
     tri9: Array = None        # (P_pad, 9) float32
-    # packet-kernel BVH4 layout (ops/bvh_pallas.py pack_bvh): SMEM slot
-    # encodings + parent axis, lane-packed VMEM wide-node bounds records
-    # (24 floats/node, 5 nodes per 128-lane row) and static-lane leaf
-    # triangle blocks; the TPU traversal path
-    pk_meta: Array = None     # (WIDE+1, Nw) int32: 4 slot encs + axis
-    pk_nb: Array = None       # (24, Nw) float32 wide-node bounds [SMEM]
-    pk_tri: Array = None      # (n_leaf*LEAF_BLOCK_ROWS, 128) f32 tri blocks
 
 
 def build_bvh(builder, scene, split_method: str = "sah") -> FlatBVH:
@@ -233,25 +226,18 @@ def _partition(order, idxs, left_mask, start, end):
 
 def _finish_flat(lo_a, hi_a, right_a, count_a, axis_a, order, v0, v1, v2,
                  dv):
-    """Assemble the FlatBVH device arrays + both traversal layouts."""
+    """Assemble the FlatBVH device arrays + the threaded layout."""
     nodes8, tri9 = _pack_threaded(lo_a, hi_a, right_a, count_a, axis_a,
                                   v0[order], v1[order], v2[order],
                                   dv=None if dv is None else
                                   tuple(x[order] for x in dv))
-    from pbrt_tpu.ops import bvh_pallas as bp
-    pk_meta, pk_nb, pk_tri = bp.pack_bvh(
-        np.asarray(lo_a), np.asarray(hi_a), np.asarray(right_a),
-        np.asarray(count_a), np.asarray(axis_a),
-        v0[order], v1[order], v2[order])
     return FlatBVH(
         lo=jnp.asarray(lo_a), hi=jnp.asarray(hi_a),
         right=jnp.asarray(right_a), count=jnp.asarray(count_a),
         axis=jnp.asarray(axis_a), prim_order=jnp.asarray(order, jnp.int32),
         v0=jnp.asarray(v0[order]), v1=jnp.asarray(v1[order]),
         v2=jnp.asarray(v2[order]),
-        nodes8=jnp.asarray(nodes8), tri9=jnp.asarray(tri9),
-        pk_meta=jnp.asarray(pk_meta), pk_nb=jnp.asarray(pk_nb),
-        pk_tri=jnp.asarray(pk_tri))
+        nodes8=jnp.asarray(nodes8), tri9=jnp.asarray(tri9))
 
 
 def _build_native(lo_p: np.ndarray, hi_p: np.ndarray, v0=None, v1=None,
@@ -550,80 +536,9 @@ def _use_stack_traversal() -> bool:
     return bool(os.environ.get("PBRT_TPU_BVH_STACK"))
 
 
-def _use_packet_kernel(bvh: FlatBVH, time) -> bool:
-    """Packet Pallas kernel: TPU backends only (the XLA gather-loop path is
-    catastrophically slow there — see ops/bvh_pallas.py); no motion-blur
-    support (falls back to the threaded XLA path)."""
-    import os
-    if os.environ.get("PBRT_TPU_NO_PALLAS") or bvh.pk_meta is None:
-        return False
-    has_motion = bvh.tri9 is not None and bvh.tri9.shape[-1] == 18
-    if has_motion and time is not None:
-        return False
-    return jax.default_backend() not in ("cpu",)
-
-
-def _spread_bits10(x):
-    """Interleave-ready 10-bit spread (Morton encode helper)."""
-    x = (x | (x << 16)) & jnp.uint32(0x030000FF)
-    x = (x | (x << 8)) & jnp.uint32(0x0300F00F)
-    x = (x | (x << 4)) & jnp.uint32(0x030C30C3)
-    x = (x | (x << 2)) & jnp.uint32(0x09249249)
-    return x
-
-
-def _packet_traverse(bvh: FlatBVH, o, d, tmax, any_hit: bool):
-    """Packet kernel, with direction-octant + origin-Morton ray sorting.
-
-    The packet kernel's shared-stack scheme is fast when a packet's 2048
-    rays agree on which subtrees to enter. The sort permutation is two
-    multi-operand lax.sort calls — NOT index gathers, which would stage
-    per-ray indices through SMEM (ops/fastgather.py).
-
-    Default ON (r4 re-A/B after the SMEM-bounds kernel rework): with the
-    cheaper per-step cost the coherence the sort buys outweighs its fixed
-    cost on EVERY workload measured on the killeroo BVH — camera-coherent
-    primaries 35.9 → 48.9 Mrays/s (Morton order beats scanline order),
-    scene-random rays 0.69 → 3.11 Mrays/s, and the full render pass
-    0.403 → 0.217 s/spp (bounce/shadow batches dominate it). Round 3's
-    opposite conclusion was an artifact of the then-dominant per-step
-    fetch cost. PBRT_TPU_NO_RAY_SORT=1 opts out."""
-    import os
-
-    from pbrt_tpu.ops import bvh_pallas as bp
-    R = o.shape[0]
-    sort_on = R >= 4096 and not os.environ.get("PBRT_TPU_NO_RAY_SORT")
-    if not sort_on:
-        return bp.bvh_traverse_pallas(
-            bvh.pk_meta, bvh.pk_nb, bvh.pk_tri, o, d, tmax,
-            bvh.lo.shape[0], bvh.v0.shape[0], any_hit)
-    octant = ((d[:, 0] < 0).astype(jnp.uint32) * 4
-              + (d[:, 1] < 0).astype(jnp.uint32) * 2
-              + (d[:, 2] < 0).astype(jnp.uint32))
-    lo = jnp.min(o, axis=0)
-    hi = jnp.max(o, axis=0)
-    q = jnp.clip(((o - lo) / (hi - lo + 1e-9) * 1023.0).astype(jnp.uint32),
-                 0, 1023)
-    morton = ((_spread_bits10(q[:, 0]) << 2)
-              | (_spread_bits10(q[:, 1]) << 1) | _spread_bits10(q[:, 2]))
-    key = (octant << 27) | (morton >> 3)
-    rid = jnp.arange(R, dtype=jnp.uint32)
-    _, ox, oy, oz, dx, dy, dz, tm, rid_s = jax.lax.sort(
-        (key, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-         tmax, rid), num_keys=1)
-    t_s, i_s = bp.bvh_traverse_pallas(
-        bvh.pk_meta, bvh.pk_nb, bvh.pk_tri,
-        jnp.stack([ox, oy, oz], -1), jnp.stack([dx, dy, dz], -1), tm,
-        bvh.lo.shape[0], bvh.v0.shape[0], any_hit)
-    _, t, leaf_i = jax.lax.sort((rid_s, t_s, i_s), num_keys=1)
-    return t, leaf_i
-
-
 def bvh_intersect_tris(bvh: FlatBVH, o, d, tmax, time=None):
     """Closest triangle hit via BVH. Returns (t, global_tri_idx, hit)."""
-    if _use_packet_kernel(bvh, time):
-        t, leaf_i = _packet_traverse(bvh, o, d, tmax, False)
-    elif bvh.nodes8 is not None and not _use_stack_traversal():
+    if bvh.nodes8 is not None and not _use_stack_traversal():
         t, leaf_i = _traverse_batch(bvh, o, d, tmax, False, time=time)
     else:
         t, leaf_i = jax.vmap(lambda oo, dd, tt: _traverse(bvh, oo, dd, tt,
@@ -634,9 +549,7 @@ def bvh_intersect_tris(bvh: FlatBVH, o, d, tmax, time=None):
 
 
 def bvh_intersect_p_tris(bvh: FlatBVH, o, d, tmax, time=None):
-    if _use_packet_kernel(bvh, time):
-        _, leaf_i = _packet_traverse(bvh, o, d, tmax, True)
-    elif bvh.nodes8 is not None and not _use_stack_traversal():
+    if bvh.nodes8 is not None and not _use_stack_traversal():
         _, leaf_i = _traverse_batch(bvh, o, d, tmax, True, time=time)
     else:
         _, leaf_i = jax.vmap(lambda oo, dd, tt: _traverse(bvh, oo, dd, tt,

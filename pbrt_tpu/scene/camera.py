@@ -1,6 +1,6 @@
 """Cameras: perspective (thin lens), orthographic, environment.
 
-TPU-native counterpart of ``src/cameras/`` + the Camera interface
+JAX counterpart of ``src/cameras/`` + the Camera interface
 (core/camera.{h,cpp}). Ray generation is batched: film-plane sample points
 (R,2) in raster space → world-space rays. The fork's wavelength generation
 (Camera::GenerateWvls, core/camera.cpp:62-76) lives in the hero integrators.
@@ -156,8 +156,10 @@ def generate_rays(cam: Camera, p_film: Array, u_lens: Array,
                                             - cam.shutter_open)
         m = cam.anim.interpolate(time)              # (R,4,4)
         rot = m[..., :3, :3]
-        o_w = jnp.einsum("...ij,...j->...i", rot, o) + m[..., :3, 3]
-        d_w = jnp.einsum("...ij,...j->...i", rot, d)
+        o_w = jnp.einsum("...ij,...j->...i", rot, o,
+                         precision=jax.lax.Precision.HIGHEST) + m[..., :3, 3]
+        d_w = jnp.einsum("...ij,...j->...i", rot, d,
+                         precision=jax.lax.Precision.HIGHEST)
         return vecmath.make_ray(o_w, d_w)
     ray = vecmath.make_ray(cam.cam_to_world.apply_point(o),
                            cam.cam_to_world.apply_vector(d))

@@ -1,10 +1,10 @@
 """Film & reconstruction filters.
 
-TPU-native counterpart of ``core/film.{h,cpp}`` (Film/FilmTile :58-193) and
+JAX counterpart of ``core/film.{h,cpp}`` (Film/FilmTile :58-193) and
 ``src/filters/`` (box, triangle, gaussian, mitchell, sinc).
 
 pbrt splats each sample into every pixel within the filter radius and keeps
-per-pixel (contribSum, filterWeightSum) merged under a mutex. On TPU we use
+per-pixel (contribSum, filterWeightSum) merged under a mutex. Here we use
 **filter importance sampling**: each (pixel, sample) draws its film-plane
 offset from the normalized |filter| distribution and carries the scalar
 weight f(Δ)/p(Δ); the pixel estimate is the mean of w·L. Same expectation as
@@ -79,8 +79,7 @@ class Filter:
     w_x: Array           # (_N_TAB,)
     w_y: Array           # (_N_TAB,)
     # static: box filter → closed-form inverse CDF (off = (2u−1)·r, w = 1)
-    # instead of the per-sample table gather (PROFILE_r03: those four
-    # gathers cost ~19 ms/iteration at R=524k on TPU)
+    # instead of four per-sample table gathers
     is_box: bool = dataclasses.field(metadata=dict(static=True),
                                      default=False)
 

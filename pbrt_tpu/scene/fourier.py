@@ -1,6 +1,6 @@
 """Measured (Fourier-basis) BSDF tables.
 
-TPU-native counterpart of ``materials/fourier.{h,cpp}`` +
+JAX counterpart of ``materials/fourier.{h,cpp}`` +
 ``FourierBSDF::f`` (core/reflection.cpp) + the Catmull–Rom machinery of
 ``core/interpolation.{h,cpp}``: reads the layerlab 'SCATFUN' v1 binary
 format (spline × Fourier isotropic BSDF; header documented at
@@ -8,8 +8,8 @@ materials/fourier.cpp:44-90) into dense arrays and evaluates f(wo, wi)
 batched over shading points.
 
 The variable-length Fourier series are stored dense-padded to mMax so the
-evaluation is a fixed-size masked reduction (fori over mMax) — TPU-friendly
-at the cost of table memory. Integrator wiring (a FOURIER material row type
+evaluation is a fixed-size masked reduction (fori over mMax) —
+vectorizable at the cost of table memory. Integrator wiring (a FOURIER material row type
 with cosine-hemisphere importance fallback) lands with measured-data scenes;
 no .bsdf assets ship with the reference repo, so this module is validated by
 a synthetic write→read→evaluate round trip (tests/test_fourier.py).
@@ -170,7 +170,7 @@ def eval_fourier_set(tables, fourier_id: Array, wo: Array, wi: Array,
     """Evaluate a tuple of FourierTables, dispatching per-ray on
     ``fourier_id`` (MaterialTable.fourier_id gathered per hit). The table
     count is static and small (one per distinct .bsdf file), so a masked
-    Python loop compiles to K fused evaluations — the TPU replacement for
+    Python loop compiles to K fused evaluations — the batched replacement for
     FourierBSDF's per-hit table pointer."""
     out = jnp.zeros(wo.shape[:-1] + (n_channels,))
     for k, tbl in enumerate(tables):

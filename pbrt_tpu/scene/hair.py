@@ -1,6 +1,6 @@
 """Hair BSDF (Marschner/Chiang model).
 
-TPU-native counterpart of ``materials/hair.{h,cpp}``: longitudinal lobes Mp
+JAX counterpart of ``materials/hair.{h,cpp}``: longitudinal lobes Mp
 (von-Mises-like, hair.cpp:51-61 with the I0/LogI0 Bessel evaluation
 :63-83), azimuthal lobes Np via trimmed logistics (:105-129), attenuation
 terms Ap for p = R, TT, TRT, and the residual lobe (:85-103), hair-scale

@@ -1,6 +1,6 @@
 """Object instancing: shared object-space geometry + per-instance transforms.
 
-TPU-native counterpart of ``TransformedPrimitive`` (core/primitive.h:92-117)
+JAX counterpart of ``TransformedPrimitive`` (core/primitive.h:92-117)
 and the ObjectBegin/ObjectInstance API (core/api.cpp pbrtObjectBegin/
 pbrtObjectInstance): an instanced object's triangles are stored ONCE in
 object space; each instance adds only a 4x4 transform pair. Intersection
@@ -68,11 +68,12 @@ class InstanceTable:
 
 def _xform_p(m: Array, p: Array) -> Array:
     """Apply a (4,4) to points (R,3)."""
-    return p @ m[:3, :3].T + m[:3, 3]
+    return _xform_v(m, p) + m[:3, 3]
 
 
 def _xform_v(m: Array, v: Array) -> Array:
-    return v @ m[:3, :3].T
+    # exact to float32: a GPU may run a float32 dot in TF32
+    return jnp.matmul(v, m[:3, :3].T, precision=jax.lax.Precision.HIGHEST)
 
 
 def _ray_box(o, inv_d, lo, hi, tmax):
@@ -197,7 +198,8 @@ def finalize_instance_hits(scene, o, d, t, prim_id, p, ng, ns, uv, dpdu,
              + bv[..., None] * it.pool_n2[j])
     w2o = it.w2o[i]
     nsv = vecmath.normalize(
-        jnp.einsum("rji,rj->ri", w2o[:, :3, :3], n_obj))
+        jnp.einsum("rji,rj->ri", w2o[:, :3, :3], n_obj,
+                   precision=jax.lax.Precision.HIGHEST))
     # exact ∂p/∂u, ∂p/∂v from the uv parameterization on the world-space
     # triangle (triangle.cpp:157-168), with the arbitrary-frame fallback
     # for degenerate uvs
@@ -222,7 +224,8 @@ def finalize_instance_hits(scene, o, d, t, prim_id, p, ng, ns, uv, dpdu,
 
 def _xform_p_batched(m: Array, p: Array) -> Array:
     """(R,4,4) x (R,3) points."""
-    return jnp.einsum("rij,rj->ri", m[:, :3, :3], p) + m[:, :3, 3]
+    return jnp.einsum("rij,rj->ri", m[:, :3, :3], p,
+                      precision=jax.lax.Precision.HIGHEST) + m[:, :3, 3]
 
 
 def build_instance_table(objects, instances) -> tuple:

@@ -1,12 +1,12 @@
 """Unified ray–scene intersection over all primitive families.
 
-TPU-native counterpart of Scene::Intersect/IntersectP (core/scene.{h,cpp})
+JAX counterpart of Scene::Intersect/IntersectP (core/scene.{h,cpp})
 + BVHAccel traversal (accelerators/bvh.cpp).
 
 Two paths:
-- **Brute force**: all-pairs (R, P) tests min-reduced per family — pure VPU
-  work, optimal for small scenes (a cornell box is ~32 primitives; the
-  whole test fits in registers/VMEM and beats any tree).
+- **Brute force**: all-pairs (R, P) tests min-reduced per family — pure
+  elementwise work that XLA fuses with its min-reduce, optimal for small
+  scenes (a cornell box is ~32 primitives and beats any tree).
 - **BVH**: for large meshes; flattened-node traversal in scene/bvh.py,
   dispatched here when ``scene.bvh`` is present.
 
@@ -30,20 +30,6 @@ Array = Any
 BIG = 1e30
 
 
-def _use_pallas(scene) -> bool:
-    import os
-
-    import jax
-
-    if os.environ.get("PBRT_TPU_NO_PALLAS"):
-        return False
-    return (jax.default_backend() not in ("cpu",)
-            and scene.bvh is None and scene.n_dsk == 0
-            and scene.n_crv == 0
-            and not scene.has_motion
-            and scene.n_prims <= 4096)
-
-
 def _tri_verts(scene, time):
     """Triangle vertices at each ray's time: (T,3) static, (R,T,3) when the
     scene has two-keyframe motion (AnimatedTransform shape lerp)."""
@@ -65,16 +51,6 @@ def intersect(scene, o: Array, d: Array, tmax: Array, time=None) -> Hit:
         if isinstance(scene.bvh, kd_mod.KdTree):
             return kd_mod.intersect_kd(scene, o, d, tmax)
         return bvh_mod.intersect_bvh(scene, o, d, tmax, time=time)
-    if _use_pallas(scene):
-        from pbrt_tpu.ops import intersect_pallas as ip
-        tri, sph, pln = ip.pack_scene(scene)
-        t, prim = ip.intersect_brute_pallas(
-            tri, sph, pln, o, d, tmax, scene.n_tri, scene.n_sph,
-            scene.n_pln)
-        if scene.inst is not None:
-            from pbrt_tpu.scene import instances as inst_mod
-            t, prim = inst_mod.update_closest(scene, o, d, t, prim)
-        return finalize_hit(scene, o, d, t, prim)
     return _intersect_brute(scene, o, d, tmax, time=time)
 
 
@@ -86,24 +62,13 @@ def intersect_p(scene, o: Array, d: Array, tmax: Array, time=None) -> Array:
         if isinstance(scene.bvh, kd_mod.KdTree):
             return kd_mod.intersect_p_kd(scene, o, d, tmax)
         return bvh_mod.intersect_p_bvh(scene, o, d, tmax, time=time)
-    if _use_pallas(scene):
-        from pbrt_tpu.ops import intersect_pallas as ip
-        tri, sph, pln = ip.pack_scene(scene)
-        _, prim = ip.intersect_brute_pallas(
-            tri, sph, pln, o, d, tmax, scene.n_tri, scene.n_sph,
-            scene.n_pln)
-        occ = prim >= 0
-        if scene.inst is not None:
-            from pbrt_tpu.scene import instances as inst_mod
-            occ = occ | inst_mod.any_hit(scene, o, d, tmax)
-        return occ
     return _intersect_p_brute(scene, o, d, tmax, time=time)
 
 
 def _family_best(t: Array, hit: Array):
     """Reduce an all-pairs (R,P) result to per-ray best (t, idx, any).
-    min instead of gather-at-argmin — per-ray gathers route indices
-    through SMEM on TPU (ops/fastgather.py)."""
+    min instead of gather-at-argmin (no per-ray index gather; see
+    ops/fastgather.py)."""
     t_masked = jnp.where(hit, t, BIG)
     idx = jnp.argmin(t_masked, axis=-1)
     tbest = jnp.min(t_masked, axis=-1)
@@ -111,7 +76,7 @@ def _family_best(t: Array, hit: Array):
 
 
 def _at_argmin(v: Array, idx: Array) -> Array:
-    """v[r, idx[r]] via one-hot dot (same SMEM-gather avoidance)."""
+    """v[r, idx[r]] via one-hot dot (no per-ray index gather)."""
     from pbrt_tpu.ops import fastgather
     return fastgather.select_along_last(v, idx)
 

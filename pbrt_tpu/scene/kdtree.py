@@ -1,6 +1,6 @@
 """SAH kd-tree accelerator.
 
-TPU-native counterpart of ``accelerators/kdtreeaccel.cpp`` (KdTreeAccel:
+JAX counterpart of ``accelerators/kdtreeaccel.cpp`` (KdTreeAccel:
 SAH build :265, flattened KdAccelNode array, iterative traversal :350).
 Host-side recursive build over triangle bounds; device-side traversal is
 the classic near/far stack walk as a vmapped ``lax.while_loop``.

@@ -1,6 +1,6 @@
 """Light-selection distributions: uniform, power, spatial.
 
-TPU-native counterpart of ``core/lightdistrib.{h,cpp}``:
+JAX counterpart of ``core/lightdistrib.{h,cpp}``:
 UniformLightDistribution, PowerLightDistribution, and
 SpatialLightDistribution (:69-104) — the spatial one voxelizes the scene
 bounds (≤64 voxels/axis, lightdistrib.cpp:106) and Monte-Carlo-estimates

@@ -1,6 +1,6 @@
 """Light table: point, spot, distant, diffuse-area, infinite, portal-area.
 
-TPU-native counterpart of ``src/lights/`` + the Light interface
+JAX counterpart of ``src/lights/`` + the Light interface
 (core/light.h:62-126). Lights are rows of an SoA table; Sample_Li/Pdf_Li are
 batched over shading points with branchless type dispatch. The fork's
 PortalArealight (lights/portal_arealight.{h,cpp}) is an AREA row with
@@ -261,8 +261,8 @@ def _prim_area_host(builder, gid: int) -> float:
 # ---------------------------------------------------------------------------
 
 def gather_lights(lt: LightTable, idx: Array) -> LightTable:
-    # fast row gather (ops/fastgather.py: per-ray index gathers route
-    # through SMEM on TPU; the select/one-hot forms stream on the VPU)
+    # small-table row gather (ops/fastgather.py: select/one-hot forms
+    # instead of per-ray index gathers)
     from pbrt_tpu.ops import fastgather
     g = fastgather.make_row_gather(lt.n, idx)
     return LightTable(

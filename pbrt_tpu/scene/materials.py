@@ -1,11 +1,11 @@
 """Material table + branchless BSDF evaluation/sampling in local frames.
 
-TPU-native counterpart of ``core/reflection.{h,cpp}`` (BSDF/BxDF :164-221 and
+JAX counterpart of ``core/reflection.{h,cpp}`` (BSDF/BxDF :164-221 and
 the lobe zoo §2.4 of SURVEY.md) + ``src/materials/``. pbrt allocates per-hit
 BSDF objects with virtual lobes; here materials are rows of an SoA table,
 shading points gather their row, and f/pdf/sample are computed for *all*
 implemented lobe families then combined with type masks — no branches, pure
-VPU code.
+vector code.
 
 Local frame convention (reflection.h): z = shading normal; wo, wi unit
 vectors; cos_theta = z component.
@@ -222,8 +222,7 @@ def _present(mp: MaterialTable, *types: int) -> bool:
 
 def gather_materials(table: MaterialTable, mat_id: Array) -> MaterialTable:
     """Gather per-ray material rows (mat_id: (R,)) — one-hot matmul path
-    (ops/fastgather.py): per-ray index gathers cost ~10 ms each on TPU
-    (SMEM index copies), the one-hot form streams on the VPU."""
+    (ops/fastgather.py) instead of per-ray index gathers."""
     from pbrt_tpu.ops import fastgather
     return fastgather.gather_tree(table, mat_id, table.mtype.shape[0])
 

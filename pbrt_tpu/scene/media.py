@@ -1,6 +1,6 @@
 """Participating media: homogeneous + heterogeneous density grid.
 
-TPU-native counterpart of ``src/media/`` (homogeneous.cpp: closed-form
+JAX counterpart of ``src/media/`` (homogeneous.cpp: closed-form
 Beer–Lambert Tr + exponential distance sampling; grid.cpp: density grid
 with ratio-tracking Tr and delta-tracking distance sampling,
 media/grid.h:51,85-87) and the Henyey–Greenstein phase function

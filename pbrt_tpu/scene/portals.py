@@ -1,6 +1,6 @@
 """Light portals: frustum tests + the three sampling strategies.
 
-TPU-native counterpart of the fork's ``src/portals/`` (Portal interface
+JAX counterpart of the fork's ``src/portals/`` (Portal interface
 portal.h:8-34, AAPortal aaportal.cpp) + PortalArealight estimator dispatch
 (lights/portal_arealight.cpp:29-239). Everything is batched over shading
 points with the portal dimension padded to lights.MAXP.
@@ -71,8 +71,8 @@ def select_visible_portal(in_front: Array, u: Array):
 
 
 def _gather_portal(g_lights, pidx: Array):
-    # one-hot contraction over the portal slot (ops/fastgather.py — the
-    # advanced-index form routes per-ray indices through SMEM on TPU)
+    # one-hot contraction over the portal slot (ops/fastgather.py) instead
+    # of an advanced-index per-ray gather
     from pbrt_tpu.ops import fastgather
     return (fastgather.select_row(g_lights.portal_lo, pidx),
             fastgather.select_row(g_lights.portal_hi, pidx),

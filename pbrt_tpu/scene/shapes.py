@@ -1,9 +1,9 @@
 """Vectorized shape intersection & area sampling.
 
-TPU-native counterpart of ``src/shapes/`` + the ``Shape`` interface
+JAX counterpart of ``src/shapes/`` + the ``Shape`` interface
 (core/shape.h:51-80). Shapes live in SoA arrays; every routine is batched
 over rays (and usually over primitives too, as an all-pairs (R, P) test that
-maps onto the VPU — the BVH in scene/bvh.py narrows P for large scenes).
+XLA fuses — the BVH in scene/bvh.py narrows P for large scenes).
 
 Implemented shape families and their reference counterparts:
 - triangles    — shapes/triangle.cpp (watertight Möller–Trumbore variant)
@@ -252,8 +252,8 @@ def _axis_onehot(ax: Array) -> Array:
 
 
 def _select_component(v: Array, i: Array) -> Array:
-    """v[..., i] per element via one-hot dot — per-ray take_along_axis
-    compiles to an SMEM-indexed gather on TPU (see ops/fastgather.py)."""
+    """v[..., i] per element via one-hot dot instead of a per-ray
+    take_along_axis gather (see ops/fastgather.py)."""
     from pbrt_tpu.ops import fastgather
     return fastgather.select_component(v, i)
 
@@ -275,7 +275,7 @@ def aaplane_normal(ax: Array, facing_fw: Array) -> Array:
 def aaplane_area(lo: Array, hi: Array, ax: Array) -> Array:
     ax0, ax1 = aaplane_axes(ax)
     d = hi - lo
-    take = _select_component  # one-hot dot, not a gather (TPU SMEM hazard)
+    take = _select_component  # one-hot dot, not a per-ray gather
     return take(d, ax0) * take(d, ax1)
 
 
@@ -400,7 +400,7 @@ CURVE_SEGMENTS = 32  # static refinement: pbrt recurses to maxDepth≈5 and
                      # runs the same linear-segment leaf test on each of
                      # 2^depth spans (curve.cpp:147-163 leaf math); a fixed
                      # fori over 32 spans is the compiler-friendly
-                     # equivalent (no divergent recursion on the VPU)
+                     # equivalent (no divergent recursion)
 
 
 def bezier_point(cp: Array, u: Array) -> Array:

@@ -1,14 +1,14 @@
 """Host-side tessellators for parametric shapes.
 
-TPU-native counterpart of the remaining ``src/shapes/`` families:
+JAX counterpart of the remaining ``src/shapes/`` families:
 cylinder.cpp, cone.cpp, paraboloid.cpp, hyperboloid.cpp (quadrics),
 heightfield.cpp, nurbs.cpp, curve.cpp (Bézier ribbons).
 
 Design: pbrt intersects quadrics analytically per-shape-class; here every
 curved shape tessellates to triangles at scene-build time (as pbrt itself
 does for heightfield.cpp:60-89 and nurbs.cpp) so the device-side intersect
-kernel stays a single watertight ray–triangle test — narrower and faster on
-the VPU than a per-type analytic zoo, at tessellation-resolution geometric
+kernel stays a single watertight ray–triangle test — narrower and faster
+than a per-type analytic zoo, at tessellation-resolution geometric
 error far below shading error. Spheres and axis-aligned rectangles stay
 analytic (they dominate sampling/pdf paths).
 

@@ -1,7 +1,7 @@
 """Textures: constant, scale, mix, checkerboard, uv, dots, bilerp,
 imagemap, and Perlin-noise textures (fbm, wrinkled, windy, marble).
 
-TPU-native counterpart of ``src/textures/`` + Texture<T>/MIPMap
+JAX counterpart of ``src/textures/`` + Texture<T>/MIPMap
 (core/texture.{h,cpp}, core/mipmap.h). Textures are rows of an SoA table
 evaluated branchlessly at shading points; image maps live in one padded
 image stack holding a full mip pyramid per image (MIPMap trilinear,

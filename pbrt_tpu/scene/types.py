@@ -1,6 +1,6 @@
 """Scene container: SoA geometry/material/light tables + host-side builder.
 
-TPU-native counterpart of ``core/scene.{h,cpp}`` + ``core/primitive.h``.
+JAX counterpart of ``core/scene.{h,cpp}`` + ``core/primitive.h``.
 pbrt's Scene owns an aggregate of virtually-dispatched Primitives; here the
 scene is a pytree of arrays grouped by shape family, with a *global primitive
 index space*:
@@ -139,7 +139,7 @@ class Scene:
     def world_radius(self) -> Array:
         return 0.5 * jnp.linalg.norm(self.world_hi - self.world_lo) + 1e-3
 
-    # per-ray primitive-table lookups through the TPU-fast gather path
+    # per-ray primitive-table lookups through the small-table gather path
     # (ops/fastgather.py — one-hot matmul for small scenes, plain take
     # above the threshold); use these instead of prim_mat[idx] in hot code
     def mat_at(self, prim_id: Array) -> Array:
@@ -582,9 +582,10 @@ class SceneBuilder:
             return None
         # A built BVH does not disqualify: the fused kernel reads the
         # builder-order geom arrays directly (build_bvh keeps its own
-        # leaf-ordered copies) and culls via its SMEM cluster AABBs;
-        # the XLA fallback still uses scene.bvh. Cap = SMEM budget for
-        # the (n_tri, 16) f32 triangle table + cluster boxes.
+        # leaf-ordered copies) and culls via its cluster AABBs; the XLA
+        # fallback still uses scene.bvh. Cap: the (n_tri, 16) f32 triangle
+        # table (64 KB at 1024 rows) is read by broadcast loads from every
+        # block, so it has to stay small enough to live in L1/L2.
         if scene.n_pln != 1 or scene.n_tri < 1 or scene.n_tri > 1024:
             return None
         if (scene.has_motion or scene.has_sss or scene.media

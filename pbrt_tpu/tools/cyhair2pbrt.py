@@ -1,6 +1,6 @@
 """cyhair2pbrt: Cem Yuksel .hair binaries → pbrt curve shapes.
 
-TPU-native framework's counterpart of ``src/tools/cyhair2pbrt.cpp``
+The framework's counterpart of ``src/tools/cyhair2pbrt.cpp``
 (489 LoC): reads the CyHair format (128-byte header: "HAIR" magic,
 numStrands/totalPoints/flags u32, default segments/thickness/alpha/color)
 and emits cubic-Bézier ``Shape "curve"`` records, converting each strand's

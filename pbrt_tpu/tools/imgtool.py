@@ -1,6 +1,6 @@
 """imgtool: assemble / cat / convert / diff / info.
 
-TPU-native counterpart of ``src/tools/imgtool.cpp:32-36`` — `diff` with
+Counterpart of ``src/tools/imgtool.cpp:32-36`` — `diff` with
 --difftol (imgtool.cpp:67-71) is the image-comparison oracle used by
 regression tests.
 
@@ -45,6 +45,24 @@ def cmd_diff(args):
     if args.outfile:
         imageio.write_image(args.outfile, d)
     return 1 if n_diff > 0 else 0
+
+
+def mean_delta(a, b) -> float:
+    """Relative delta of the image means (imgtool diff's avgDelta,
+    imgtool.cpp:418-420)."""
+    ma, mb = float(np.mean(a)), float(np.mean(b))
+    return abs(ma - mb) / max(min(ma, mb), 1e-9)
+
+
+def block_rel_l1(a, b, k=8) -> float:
+    """Blockwise relative L1: |mean_block(a)-mean_block(b)| summed, over
+    sum(b). Absorbs per-pixel MC noise, catches structural/energy
+    errors; the metric the image oracle holds renders to."""
+    a, b = np.asarray(a), np.asarray(b)
+    h, w = a.shape[0] // k * k, a.shape[1] // k * k
+    da = a[:h, :w].reshape(h // k, k, w // k, k, -1).mean((1, 3))
+    db = b[:h, :w].reshape(h // k, k, w // k, k, -1).mean((1, 3))
+    return float(np.abs(da - db).sum() / max(db.sum(), 1e-9))
 
 
 def _luminance(img):

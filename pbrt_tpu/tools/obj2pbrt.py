@@ -1,6 +1,6 @@
 """obj2pbrt: Wavefront OBJ → .pbrt scene converter.
 
-TPU-native framework's counterpart of ``src/tools/obj2pbrt.cpp`` (a
+The framework's counterpart of ``src/tools/obj2pbrt.cpp`` (a
 tinyobjloader-based converter, 1,594 LoC): parses v/vn/vt/f records with
 negative-index and polygon-fan handling plus .mtl material libraries, and
 emits ``trianglemesh`` shapes grouped by material with matte/plastic/metal

@@ -1,6 +1,6 @@
 """Render checkpoint/resume — capability the reference lacks (SURVEY.md §5:
-"The film is written once at the end ... The TPU build should add
-film+sampler-state checkpointing").
+the reference writes the film once at the end; this adds film +
+sampler-state checkpointing).
 
 The film accumulator + spp progress + RNG seed are pure data, so a
 checkpoint is one npz; resuming continues at the recorded spp offset with

@@ -1,6 +1,6 @@
 """CLI entry point: ``python -m pbrt_tpu.utils.cli scene.pbrt [options]``.
 
-TPU-native counterpart of ``src/main/pbrt.cpp`` (main():76-173 with
+JAX counterpart of ``src/main/pbrt.cpp`` (main():76-173 with
 --outfile/--quick/--quiet flags; --nthreads becomes the device mesh, which
 JAX sizes automatically).
 """
@@ -14,7 +14,7 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        prog="pbrt_tpu", description="TPU-native pbrt-style renderer")
+        prog="pbrt_tpu", description="JAX-native pbrt-style renderer")
     ap.add_argument("scene", help=".pbrt scene file")
     ap.add_argument("--outfile", "-o", default=None,
                     help="override output image path")
@@ -53,12 +53,15 @@ def main(argv=None):
         reformat(args.scene, to_ply=args.toply)
         return 0
 
+    import jax
+
+    from pbrt_tpu.utils import compile_cache
+
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
     if args.debug_nans:
-        import jax
         jax.config.update("jax_debug_nans", True)
+    compile_cache.enable()
 
     import numpy as np
 

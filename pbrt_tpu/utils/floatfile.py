@@ -1,6 +1,6 @@
 """Whitespace-separated float-file reader.
 
-TPU-native counterpart of ``core/floatfile.{h,cpp}`` (ReadFloatFile):
+JAX counterpart of ``core/floatfile.{h,cpp}`` (ReadFloatFile):
 parses files of whitespace-separated numbers with ``#`` comments — the
 on-disk SPD format (``"spectrum Kd" "metal-Cu.spd"`` parameters, pairs of
 (wavelength_nm, value) rows).

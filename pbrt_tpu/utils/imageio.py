@@ -1,6 +1,6 @@
 """Image I/O: EXR, PNG, PFM, TGA — stdlib-only implementations.
 
-TPU-native counterpart of ``core/imageio.{h,cpp}`` (ReadImage/WriteImage
+JAX counterpart of ``core/imageio.{h,cpp}`` (ReadImage/WriteImage
 dispatch by extension, imageio.cpp:60-75) without the OpenEXR/lodepng
 dependencies: a minimal OpenEXR v2 scanline codec (NONE + ZIP), a PNG
 codec over zlib, and PFM/TGA codecs.

@@ -1,6 +1,6 @@
 """Statistics & profiling.
 
-TPU-native counterpart of ``core/stats.{h,cpp}``: the STAT_* macro registry
+JAX counterpart of ``core/stats.{h,cpp}``: the STAT_* macro registry
 (stats.h:54-356) becomes a dict of named counters carried as reduced device
 arrays; the SIGPROF sampling profiler (stats.cpp:207-239) maps to
 ``jax.profiler`` traces (phase attribution comes from XLA op names, which

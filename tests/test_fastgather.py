@@ -1,4 +1,4 @@
-"""ops/fastgather.py — the TPU-fast gather strategies must be EXACTLY
+"""ops/fastgather.py — the small-table gather strategies must be EXACTLY
 equivalent to plain takes (they replaced every hot-path gather in round 3;
 see PROFILE_r03.md for why)."""
 

@@ -6,8 +6,8 @@ The kernel regenerates the exact pcg4d sample streams of the XLA path
 projection branch, the Render hot loop role of core/integrator.cpp:526-637),
 so on its eligible scene class the two paths must agree lane-for-lane to
 float tolerance — not just in distribution. Runs in Pallas interpret mode
-on the CPU test backend; the TPU compile of the same kernel is exercised
-by bench.py on hardware.
+on the CPU test backend; the GPU compile of the same kernel is exercised
+by chip_smoke.py and the ``gpu``-marked tests on the card.
 """
 
 import dataclasses as dc
@@ -15,6 +15,7 @@ import dataclasses as dc
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import __graft_entry__ as ge
 from pbrt_tpu.integrators.render import RenderConfig, _li_loop, _sample2
@@ -94,15 +95,84 @@ def test_fused_gradient_replay_matches_xla_autodiff():
     assert np.abs(np.asarray(g1[0])).max() > 1e-3   # non-trivial grads
 
 
-def test_fused_eligibility_gate():
-    """eligible() is False on the CPU backend, under the env kill-switch,
-    and for configs the kernel does not implement."""
+def test_fused_eligibility_gate(monkeypatch):
+    """eligible() is the one dispatch point: True only on the GPU backend
+    for a scene + config inside the kernel's profile."""
     scene = ge._portal_scene()
     cfg = RenderConfig(integrator="path", max_depth=4)
     assert jax.default_backend() == "cpu"
     assert not fused_path.eligible(scene, cfg)          # cpu backend
-    cfg2 = RenderConfig(integrator="path", sampler="halton")
-    assert not fused_path.eligible(scene, cfg2)
+    monkeypatch.setattr(fused_path.jax, "default_backend", lambda: "gpu")
+    assert fused_path.eligible(scene, cfg)
+    assert not fused_path.eligible(
+        scene, RenderConfig(integrator="path", sampler="halton"))
+    assert not fused_path.eligible(
+        scene, RenderConfig(integrator="path", light_strategy="power"))
+    assert not fused_path.eligible(
+        scene, RenderConfig(integrator="path", collect_stats=True))
+    assert not fused_path.eligible(scene, cfg, time=jnp.zeros(4))
+    plain = dc.replace(scene, fused_profile=None)
+    assert not fused_path.eligible(plain, cfg)
+
+
+def _kernel_args(scene, cfg):
+    ax, pl_facing, portal_facing, n_mat, mode = scene.fused_profile
+    tri, msc, clu, n_clu = fused_path.pack_fused(scene, mode)
+    kw = dict(n_tri=scene.n_tri, n_b=cfg.max_depth + 1, ax=ax,
+              pl_facing=pl_facing, portal_facing=portal_facing,
+              n_mat=n_mat, seed=cfg.seed, rr_threshold=cfg.rr_threshold,
+              mode=mode, n_clu=n_clu, interpret=True)
+    return (tri, msc, scene.materials.kd, clu), kw
+
+
+@pytest.mark.parametrize("n_rays", [1000, 100])
+def test_fused_wrapper_ragged_batch(n_rays):
+    """A ray count that is not a multiple of the block (several blocks, or
+    less than one): the wrapper pads the tail and drops it — residuals
+    equal those of the same rays inside a block-aligned batch, and the
+    radiance still matches _li_loop."""
+    scene = ge._portal_scene()
+    rays, pid, sidx, sfn, cfg = _rays(scene, res=32, chunk=1)
+    block = fused_path.BLOCK
+    assert n_rays % block and rays.o.shape[0] % block == 0
+    tables, kw = _kernel_args(scene, cfg)
+    full = fused_path._impl(*tables, rays.o, rays.d, pid, sidx, **kw)
+    part = fused_path._impl(*tables, rays.o[:n_rays], rays.d[:n_rays],
+                            pid[:n_rays], sidx[:n_rays], **kw)
+    for a, b in zip(part, full):
+        assert a.shape == (cfg.max_depth + 1, n_rays)
+        np.testing.assert_array_equal(np.asarray(a),
+                                      np.asarray(b)[:, :n_rays])
+    L = fused_path.replay(scene.materials.kd, scene.lights.emit[0], *part)
+    L_ref = _li_loop(scene, rays.o[:n_rays], rays.d[:n_rays], pid[:n_rays],
+                     sidx[:n_rays], sfn, cfg, None)
+    np.testing.assert_allclose(np.asarray(L), np.asarray(L_ref), atol=5e-6)
+
+
+@pytest.mark.parametrize("scene_fn", ["portal", "clustered"])
+def test_fused_kernel_lowers_to_triton(scene_fn):
+    """The kernel lowers for CUDA through Pallas-Triton (flat sweep and
+    cluster-culled sweep): every primitive it uses has a Triton rule and
+    every block has a power-of-two size. Cross-lowering needs no GPU;
+    compiling the Triton IR happens on the card (chip_smoke.py)."""
+    scene = (ge._portal_scene() if scene_fn == "portal"
+             else _tessellated_cornell(nseg=13))
+    cfg = RenderConfig(integrator="path", max_depth=4)
+    tables, kw = _kernel_args(scene, cfg)
+    kw["interpret"] = False
+    R = 4096
+    o = jnp.zeros((R, 3))
+    d = jnp.ones((R, 3))
+    ids = jnp.zeros(R, jnp.uint32)
+    exp = jax.export.export(
+        jax.jit(lambda o, d: fused_path._impl(*tables, o, d, ids, ids,
+                                              **kw)),
+        platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(o, d)
+    text = exp.mlir_module()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert 'name = "fused_path"' in text
 
 
 def test_fused_profile_rejects_non_matte_scene():
@@ -200,7 +270,7 @@ def _add_sphere_mesh(b, c, r, m, nseg):
 
 def _tessellated_cornell(nseg=16):
     """Cornell box + two lat-long tessellated matte spheres as triangle
-    meshes (~2·2·nseg² tris) — exercises the r5 SMEM cluster-culling
+    meshes (~2·2·nseg² tris) — exercises the cluster-culling
     widening of the fused profile (>255 triangles, BVH built for the
     XLA fallback, kernel culls via contiguous 32-row cluster AABBs)."""
     from pbrt_tpu.core.spectrum import RGB
@@ -380,3 +450,38 @@ def test_fused_area_mode_gradients():
     np.testing.assert_allclose(np.asarray(g2[1]), np.asarray(g1[1]),
                                atol=2e-5)
     assert np.abs(np.asarray(g1[0])).max() > 1e-3
+
+
+def test_fused_kernel_lowers_under_shard_map(monkeypatch):
+    """The sharded fwd+bwd (parallel/render.py _pass_shard on a dp=2 ×
+    sp=2 mesh) dispatches the kernel as it does on the card and lowers
+    for CUDA: the kernel's outputs carry the rays' varying mesh axes."""
+    import functools
+
+    from jax.sharding import PartitionSpec as P
+
+    from pbrt_tpu.parallel import make_mesh
+    from pbrt_tpu.parallel import render as prender
+    from pbrt_tpu.scene import film as film_mod
+
+    monkeypatch.setattr(fused_path.jax, "default_backend", lambda: "gpu")
+    scene = ge._portal_scene()
+    cam = ge._camera((16, 16))
+    cfg = RenderConfig(integrator="path", max_depth=4)
+    mesh = make_mesh(4)
+    body = functools.partial(prender._pass_shard, cfg=cfg, width=16,
+                             height=16, chunk=2, dp_size=2, sp_size=2)
+    fn = jax.shard_map(body, mesh=mesh, in_specs=(P(),) * 5,
+                       out_specs=P("sp", None, None))
+
+    def loss(kd):
+        s = dc.replace(scene, materials=dc.replace(scene.materials, kd=kd))
+        return jnp.mean(fn(s, cam, film_mod.make_filter("box"),
+                           jnp.asarray(0, jnp.uint32), None))
+
+    exp = jax.export.export(
+        jax.jit(jax.value_and_grad(loss)), platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(scene.materials.kd)
+    assert exp.nr_devices == 4
+    assert exp.mlir_module().count("__gpu$xla.gpu.triton") == 1

@@ -1,7 +1,7 @@
 """Multi-device path tests on the virtual 8-device CPU mesh (conftest).
 
 Mirrors the reference's parallel-backend self-test (src/tests/parallel.cpp:39)
-for the TPU-native decomposition: render_sharded (dp sample-split + psum
+for the device-mesh decomposition: render_sharded (dp sample-split + psum
 film merge, sp row-slabs), make_train_step/inverse_render_step (psum'd
 parameter grads via shard_map's transpose), make_mesh. Exercises every
 public symbol of pbrt_tpu/parallel/render.py — VERDICT r2 Missing #2.

@@ -233,3 +233,14 @@ class TestAnalyticSceneMatrix:
         img = np.asarray(render(scene, cam, spp=96, integrator="path",
                                 max_depth=3, seed=6))
         np.testing.assert_allclose(img.mean(), 0.5, atol=0.035)
+
+
+@pytest.mark.parametrize("spp,cap,want", [(64, 7, 4), (64, 30, 16),
+                                          (64, 3, 2), (16, 16, 16),
+                                          (7, 5, 5), (13, 4, 4)])
+def test_even_chunk_keeps_one_pass_shape(spp, cap, want):
+    """render()'s default spp chunk divides spp when that keeps at least
+    half the memory-bound pass size (one compiled program), else it is
+    the cap itself."""
+    from pbrt_tpu.integrators.render import _even_chunk
+    assert _even_chunk(spp, cap) == want

@@ -1,6 +1,6 @@
 """Generate Sobol' generator matrices → pbrt_tpu/samplers/sobolmatrices.py.
 
-TPU-native counterpart of the reference's generated tables
+JAX counterpart of the reference's generated tables
 (src/core/sobolmatrices.{h,cpp}, 27 kLoC): direction numbers for the first
 N_DIMS Sobol' dimensions, 32 output bits each, packed MSB-first as uint32
 columns (column i is XORed into the output when bit i of the sample index is
